@@ -4,10 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from `ldpc_sparc_tpu_torch/csrc/`,
-checks each against its plain PyTorch version on the card, drives the main
-path once (a plain SPARC AMP decode at L=1024, M=512, R=1.0, P=15,
-awgn_var 1, t_max 25, 256 codewords: the decode `bench.py` times), and
-times it. Each phase prints one line. The line before the last is a JSON
+checks each against its plain PyTorch version on the card, and drives and
+times the paths `bench.py` times:
+
+  * slice A, the main path: a plain SPARC AMP decode at L=1024, M=512,
+    R=1.0, P=15, awgn_var 1, t_max 25, 256 codewords (phases 2-5);
+  * slice B: the LDPC BP decode of 256 codewords of 802.11n r=1/2 z=27 at
+    sigma^2 = 10^-0.2, sumprod2, at most 50 iterations (phases 6-7), and
+    the waterfall campaign's 16-point segment, 802.16 r=1/2 z=27, seed 7,
+    batch 512, sumprod2, at most 200 iterations (phase 8).
+
+Each phase prints one line. The line before the last is a JSON
 summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, exits non-zero and prints no such line. Without a CUDA
@@ -30,6 +37,33 @@ FWHT_REL_BOUND = 1e-5
 # (s is bit-equal by construction; exp and the sums reassociate)
 DENOISE_TOL = {"s": (1e-6, 1e-6), "beta_new": (1e-5, 1e-7),
                "sec_en": (1e-5, 1e-7)}
+
+# slice B: bench.py's LDPC BP decode and campaign segment
+BP_CODE, BP_BATCH, BP_ITERS, BP_SNR_DB = ("802.11n", "1/2", 27, "A"), 256, 50, 2.0
+CAMPAIGN_CODE = ("802.16", "1/2", 27, "A")
+CAMPAIGN = dict(seed=7, batch=512, dectype="sumprod2", max_iters=200)
+CAMPAIGN_WARM, CAMPAIGN_POINTS = 2, 16
+PLAIN_CAMPAIGN_POINTS = 2   # the plain path's cut: its full segment takes minutes
+# K4 vs plain BP (code, method, SNR dB, batch, max_iters): the largest check
+# degree, the largest z, the largest shared state, and the campaign's shape.
+# Iterations must be equal on every codeword; decisions equal and the APP
+# within tests/test_bp_pallas.py's rtol 1e-5 / atol 1e-4 on every codeword
+# that stopped by parity (one that runs to the cap may drift apart at
+# float32 rounding). In the seed-0 draws 18 and 22 of 256 codewords run to
+# the cap in the two 802.11n cases, 1 in each 802.16 z=150 case and none
+# of 512 at the campaign's shape.
+K4_CASES = [(("802.11n", "1/2", 27, "A"), "sumprod", 1.5, BP_BATCH, BP_ITERS),
+            (("802.11n", "5/6", 81, "A"), "minsum", 5.5, BP_BATCH, BP_ITERS),
+            (("802.16", "1/2", 150, "A"), "sumprod", 1.5, BP_BATCH, BP_ITERS),
+            (("802.16", "3/4", 150, "B"), "sumprod", 4.5, BP_BATCH, BP_ITERS),
+            (CAMPAIGN_CODE, CAMPAIGN["dectype"], 2.5, CAMPAIGN["batch"],
+             CAMPAIGN["max_iters"])]
+BP_TOL = (1e-5, 1e-4)
+# further draws of the BP path's inputs whose K4 time phase 7 reports beside
+# seed 0's: the decode lasts as long as its slowest codeword; seed 0's
+# stops after 29 iterations, and seeds 1-5 each hold one or two codewords
+# that run to the cap
+BP_DRAW_SEEDS = (0, 1, 2, 3, 4, 5)
 
 
 def phase(n, text):
@@ -54,6 +88,170 @@ def cuda_ms(fn, reps=20, warmup=3):
 def fwht_err(got, want):
     """(max |got - want|, bound) for the FWHT comparisons."""
     return float((got - want).abs().max()), FWHT_REL_BOUND * float(want.abs().max())
+
+
+def bp_inputs(code, snr_db, batch, seed, dev):
+    """(codewords, LLRs) of `batch` random codewords, BPSK over AWGN at
+    sigma^2 = 10^(-snr_db/10), made on the CPU from `seed` (so a CPU run
+    reproduces them) and moved to `dev`."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = code.encode(torch.randint(0, 2, (batch, code.K), generator=gen))
+    sigma2 = 10 ** (-snr_db / 10)
+    y = (1 - 2 * x.float()) + sigma2 ** 0.5 * torch.randn(batch, code.N,
+                                                          generator=gen)
+    return x.to(dev), (2 / sigma2 * y).to(dev)
+
+
+def bp_compare(got, want, max_iters):
+    """The K4 gate (see K4_CASES). Returns (max |d app| over the codewords
+    that stopped by parity, number that ran to the cap)."""
+    import torch
+    if not torch.equal(got.iterations, want.iterations):
+        n = int((got.iterations != want.iterations).sum())
+        raise AssertionError(f"iterations differ on {n} codewords")
+    stopped = want.iterations < max_iters
+    if not torch.equal(got.app[stopped] < 0, want.app[stopped] < 0):
+        raise AssertionError("decisions differ on a codeword that stopped")
+    torch.testing.assert_close(got.app[stopped], want.app[stopped],
+                               rtol=BP_TOL[0], atol=BP_TOL[1])
+    err = float((got.app[stopped] - want.app[stopped]).abs().max()) \
+        if bool(stopped.any()) else 0.0
+    return err, int((~stopped).sum())
+
+
+def slice_b(dev, card):
+    """Phases 6-8; returns K4's entry of the kernels line."""
+    import torch
+    from ldpc_sparc_tpu_torch import LdpcParams, get_code, ldpc_waterfall_campaign
+    from ldpc_sparc_tpu_torch.ops import bp_cuda
+
+    # -- 6: K4 against its plain version ----------------------------------------
+    k4_err, parts = 0.0, []
+    for cfg, method, snr, batch, iters in K4_CASES:
+        code = get_code(*cfg)
+        _, llr = bp_inputs(code, snr, batch, SEED, dev)
+        corr = method != "minsum"
+        got = bp_cuda.bp_decode_kernel(llr, code.graph, iters, corr, 0.7)
+        want = bp_cuda.bp_decode_ref(llr, code.graph, iters, corr, 0.7)
+        torch.cuda.synchronize()
+        err, capped = bp_compare(got, want, iters)
+        k4_err = max(k4_err, err)
+        parts.append(f"{cfg[0]} r{cfg[1]}{cfg[3] if cfg[3] != 'A' else ''} z={cfg[2]} "
+                     f"{method} {snr:g} dB batch {batch} <= {iters} iterations "
+                     f"({bp_cuda.shared_bytes(code.graph)} B shared): max|d app| "
+                     f"{err:.2e}, iterations mean/max "
+                     f"{float(got.iterations.float().mean()):.2f}/"
+                     f"{int(got.iterations.max())}, {capped} at the cap")
+    phase(6, f"bp_decode_kernel vs plain (iterations equal on all; decisions and "
+             f"app rtol {BP_TOL[0]:g} atol {BP_TOL[1]:g} on those stopped by "
+             f"parity): " + "; ".join(parts))
+
+    # -- 7: the BP path (bench.py's ldpc_bp_ms_per_block) ------------------------
+    code = get_code(*BP_CODE)
+    x, llr = bp_inputs(code, BP_SNR_DB, BP_BATCH, SEED, dev)
+    bp_cuda.LAUNCHES = 0
+    res = code.decode(llr, BP_ITERS, "sumprod2")
+    torch.cuda.synchronize()
+    launches = bp_cuda.LAUNCHES
+    bit_errs = int(((res.app < 0).int() != x).sum())
+    if bit_errs != 0:
+        raise AssertionError(f"BP path: {bit_errs} bit errors")
+    if launches != 1:
+        raise AssertionError(f"BP path: bp_decode_kernel launched {launches} times")
+    if res.app.shape != (BP_BATCH, code.N) or not bool(torch.isfinite(res.app).all()):
+        raise AssertionError("BP path output has the wrong shape or is not finite")
+    plain = code.decode(llr, BP_ITERS, "sumprod2", bp_kernel=False)
+    torch.cuda.synchronize()
+    err, capped = bp_compare(res, plain, BP_ITERS)
+    k4_err = max(k4_err, err)
+
+    def bp_window(kernel):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            code.decode(llr, BP_ITERS, "sumprod2", bp_kernel=kernel)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 5
+
+    best = {True: float("inf"), False: float("inf")}
+    for i in range(4):   # alternate: kernel, plain, plain, kernel, ...
+        for kernel in ((True, False) if i % 2 == 0 else (False, True)):
+            best[kernel] = min(best[kernel], bp_window(kernel))
+    ms_block = {k: v / BP_BATCH * 1e3 for k, v in best.items()}
+    k4_ms = cuda_ms(lambda: bp_cuda.bp_decode_kernel(llr, code.graph, BP_ITERS,
+                                                     True, 0.7))
+    k4_plain_ms = cuda_ms(lambda: bp_cuda.bp_decode_ref(llr, code.graph, BP_ITERS,
+                                                        True, 0.7), reps=5)
+    draws = []
+    for s in BP_DRAW_SEEDS:
+        _, llr_s = bp_inputs(code, BP_SNR_DB, BP_BATCH, s, dev)
+        slowest = int(bp_cuda.bp_decode_kernel(llr_s, code.graph, BP_ITERS, True,
+                                               0.7).iterations.max())
+        ms = cuda_ms(lambda: bp_cuda.bp_decode_kernel(llr_s, code.graph, BP_ITERS,
+                                                      True, 0.7))
+        draws.append(f"seed {s} slowest {slowest} it {ms:.4f} ms "
+                     f"({ms / BP_BATCH:.6f} ms/block)")
+    phase(7,f"BP path {BP_CODE[0]} r={BP_CODE[1]} z={BP_CODE[2]} batch {BP_BATCH} "
+             f"sumprod2 <= {BP_ITERS} iterations at sigma^2 = 10^-{BP_SNR_DB / 10:g} on "
+             f"{card}: bit errors {bit_errs} | K4 launches {launches} | iterations "
+             f"mean/max {float(res.iterations.float().mean()):.2f}/"
+             f"{int(res.iterations.max())} | kernel and plain paths agree "
+             f"(max|d app| {err:.2e}) | ldpc_bp_ms_per_block kernel path "
+             f"{ms_block[True]:.6f} (best decode {best[True] * 1e3:.4f} ms), plain "
+             f"path {ms_block[False]:.6f} (best decode {best[False] * 1e3:.4f} ms) | "
+             f"bp_decode_kernel {k4_ms:.4f} ms (plain {k4_plain_ms:.4f} ms) | "
+             f"bp_decode_kernel across draws: " + ", ".join(draws))
+
+    # -- 8: the campaign segment (bench.py's campaign_blocks_per_s) --------------
+    params = LdpcParams(*CAMPAIGN_CODE)
+    K = get_code(*CAMPAIGN_CODE).K
+
+    def campaign(n, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = ldpc_waterfall_campaign(params, n_measurements=n, device=dev,
+                                       **CAMPAIGN, **kw)
+        torch.cuda.synchronize()
+        return recs, time.perf_counter() - t
+
+    campaign(CAMPAIGN_WARM)
+    bp_cuda.LAUNCHES = 0
+    recs, dt = campaign(CAMPAIGN_POINTS)
+    launches_c = bp_cuda.LAUNCHES
+    blocks = sum(r[5] for r in recs)
+    if len(recs) != CAMPAIGN_POINTS or any(
+            len(r) != 10 or r[7] != r[5] * K or not 0 <= r[6] <= r[5] for r in recs):
+        raise AssertionError(f"campaign records are malformed: {recs}")
+    if not all(b[4] > a[4] for a, b in zip(recs, recs[1:])):
+        raise AssertionError("campaign SNR does not step up")
+    if not recs[-1][6] / recs[-1][5] < recs[0][6] / recs[0][5]:
+        raise AssertionError("campaign block-error rate does not fall with SNR")
+    if launches_c < blocks // CAMPAIGN["batch"]:
+        raise AssertionError(f"campaign launched K4 {launches_c} times for "
+                             f"{blocks // CAMPAIGN['batch']} batches")
+    cut_k, dt_k = campaign(PLAIN_CAMPAIGN_POINTS)
+    cut_p, dt_p = campaign(PLAIN_CAMPAIGN_POINTS, bp_kernel=False)
+    if cut_k != cut_p:
+        raise AssertionError(f"campaign records differ between the kernel and "
+                             f"plain paths: {cut_k} vs {cut_p}")
+    cut_blocks = sum(r[5] for r in cut_k)
+    phase(8, f"campaign {CAMPAIGN_CODE[0]} r={CAMPAIGN_CODE[1]} z={CAMPAIGN_CODE[2]} "
+             f"seed {CAMPAIGN['seed']} batch {CAMPAIGN['batch']} sumprod2 <= "
+             f"{CAMPAIGN['max_iters']} iterations on {card}: {CAMPAIGN_POINTS}-point "
+             f"segment after a {CAMPAIGN_WARM}-point warm-up, {blocks} blocks in "
+             f"{dt:.4f} s, SNR {recs[0][4]:.3f} -> {recs[-1][4]:.3f} dB, block errors "
+             f"{recs[0][6]}/{recs[0][5]} -> {recs[-1][6]}/{recs[-1][5]}, K4 launches "
+             f"{launches_c} | campaign_blocks_per_s kernel path {blocks / dt:.1f} | "
+             f"cut to the first {PLAIN_CAMPAIGN_POINTS} points ({cut_blocks} blocks): "
+             f"kernel path {cut_blocks / dt_k:.1f}, plain path "
+             f"{sum(r[5] for r in cut_p) / dt_p:.1f} blocks/s, records equal")
+
+    return {"name": "bp_decode", "route": "cuda",
+            "source": "ldpc_sparc_tpu_torch/csrc/bp_decode.cu",
+            "replaces": "ldpc_sparc_tpu/ops/bp_pallas.py:56",
+            "launches": launches, "max_abs_err": k4_err,
+            "ms": k4_ms, "plain_ms": k4_plain_ms}
 
 
 def main():
@@ -87,7 +285,7 @@ def main():
     path, log = _build.build()
     _build.load()
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
+             if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     phase(1, f"build: {time.perf_counter() - t0:.1f} s -> {path.name}"
              + (" | " + " / ".join(ptxas) if ptxas else " (cached)"))
 
@@ -251,6 +449,7 @@ def main():
          "max_abs_err": errs["fused_denoise_update"],
          "ms": k3[0], "plain_ms": k3[1]},
     ]
+    kernels.append(slice_b(dev, card))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,19 +4,26 @@ The JAX package `ldpc_sparc_tpu` is the reference this port is held
 against; the two share no code, and this package imports neither JAX nor
 `ldpc_sparc_tpu`. Its layout mirrors the reference's:
 
-  config.py  typed SPARC parameters and base matrices (numpy)
-  ops/       design transforms, denoisers, and the hand-written Hopper
-             kernels with their plain PyTorch versions (`*_cuda.py`,
-             sources in `csrc/`, built by `_build.py` at first use)
-  models/    the SPARC codec and the AMP decoder
+  config.py  typed SPARC and LDPC parameters, base matrices (numpy)
+  ops/       design transforms, denoisers, LDPC belief propagation, and the
+             hand-written Hopper kernels with their plain PyTorch versions
+             (`*_cuda.py`, sources in `csrc/`, built by `_build.py` at
+             first use)
+  models/    the SPARC codec and AMP decoder; the 802.11n / 802.16 LDPC
+             code library
+  parallel/  the single-device LDPC waterfall campaign
   utils/     bit codecs, generator derivation, error metrics
   parity.py  carries a JAX-built design into the port
 
-Ported so far: the plain SPARC AMP decode (real, K=1, SRHT design).
+Ported so far: the plain SPARC AMP decode (real, K=1, SRHT design); LDPC
+BP, the code library and the waterfall campaign.
 """
 
-from .config import SparcParams, DecodeParams
+from .config import SparcParams, DecodeParams, LdpcParams
 from .ops.transforms import SparcDesign
+from .ops.bp import bp_decode
 from .models.sparc import sparc_sim, amp_decode, awgn_channel
+from .models.ldpc import LdpcCode, get_code
+from .parallel.montecarlo import ldpc_waterfall_campaign
 
 __version__ = "0.1.0"

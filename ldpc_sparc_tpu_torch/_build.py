@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels from `csrc/` at first use and load them.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper) into one shared
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, which `ctypes` loads. The library lands
 in `_build/` beside this file, named by a hash of the sources and flags,
 so a second run with unchanged sources loads it without compiling.
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+              "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -63,15 +64,31 @@ def build() -> tuple[Path, str]:
         return path, ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(f) for f in _sources() if f.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    srcs = [f for f in _sources() if f.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.name}.{f.stem}.o") for f in srcs]
+    nvcc = _nvcc()
+    # one nvcc per source, all running at once; then one link
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+            for f, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:"
+                                   f"\n{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
-    return path, proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return path, "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -88,6 +105,10 @@ def load() -> ctypes.CDLL:
             lib.ldpc_denoise_update.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                                 i64, i32, ptr]
             lib.ldpc_denoise_update.restype = i32
+            lib.ldpc_bp_decode.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                           i32, i32, i32, i32, ctypes.c_float,
+                                           ptr]
+            lib.ldpc_bp_decode.restype = i32
             lib.ldpc_cuda_error_string.argtypes = [i32]
             lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

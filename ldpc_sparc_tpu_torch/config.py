@@ -1,17 +1,16 @@
-"""Typed SPARC configuration: a numpy-only copy of `ldpc_sparc_tpu/config.py`.
+"""Typed SPARC and LDPC configuration: a numpy-only copy of
+`ldpc_sparc_tpu/config.py`.
 
 The JAX package's `config` cannot be imported without loading JAX (its
 package `__init__` imports the JAX modules), so the port carries its own
 copy of this host-side code. `tests/test_torch_transforms.py` holds the
-copy to the original: the designs both packages construct are
-bit-identical.
-
-The LDPC parameters (`LdpcParams`, `param_calc`, ...) arrive with the LDPC
-slice of the port.
+copy to the original (the designs both packages construct are
+bit-identical), and `tests/test_torch_ldpc.py` holds the LDPC part.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -204,3 +203,99 @@ def create_base_matrix(params: SparcParams, awgn_var: float) -> np.ndarray:
     else:
         W = np.atleast_1d(Q)[None, :]   # Q is a scalar or a 1-D allocation
     return np.asarray(W, dtype=np.float64)
+
+
+# --------------------------------------------------------------------------
+# LDPC code parameters
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LdpcParams:
+    """IEEE 802.11n / 802.16 LDPC code selector.
+
+    standard : '802.11n' or '802.16'
+    rate     : '1/2', '2/3', '3/4' or '5/6'
+    z        : protograph expansion factor ({27,54,81} for 802.11n, >=3 for 802.16)
+    ptype    : 'A' or 'B' (802.16 rates 2/3 and 3/4 only)
+    """
+
+    standard: str = "802.11n"
+    rate: str = "1/2"
+    z: int = 27
+    ptype: str = "A"
+
+    def __post_init__(self):
+        assert self.standard in ("802.11n", "802.16")
+        assert self.rate in ("1/2", "2/3", "3/4", "5/6")
+        if self.standard == "802.11n":
+            assert self.z in (27, 54, 81), "802.11n requires z in {27,54,81}"
+        else:
+            assert self.z >= 3
+        assert self.ptype in ("A", "B")
+
+    @property
+    def rate_float(self) -> float:
+        num, den = self.rate.split("/")
+        return int(num) / int(den)
+
+
+@dataclass(frozen=True)
+class ConcatLengths:
+    """Length bookkeeping for the concatenated LDPC-SPARC code
+    (the `lengths` dict of ldpc_sparc/param_calc.py:24-27,54-57)."""
+
+    k_ldpc: int
+    mults: int
+    L_unprotected: int = 0
+
+
+def param_calc(mults: int, logM: int, ldpc: LdpcParams, int_rate: float,
+               R_sparc_ldpc: float, ldpc_K: int) -> Tuple[float, int, int, ConcatLengths]:
+    """Fully-protected concatenation bookkeeping (ldpc_sparc/param_calc.py:11-28).
+
+    ldpc_K: information length K of the chosen LDPC code (z * Kp).
+
+    Returns (overall_rate, L_sparc, L_sparc_ldpc, lengths).
+    """
+    k = ldpc_K * mults
+    ldpc_bits_len = k / int_rate
+    assert ldpc_bits_len == int(ldpc_bits_len), "ldpc_bits_len must be an integer"
+    ldpc_bits_len = int(ldpc_bits_len)
+    assert k % logM == 0
+    assert ldpc_bits_len % logM == 0
+    n = int(ldpc_bits_len / R_sparc_ldpc)
+    overall_rate = k / n
+    L_sparc = k // logM
+    L_sparc_ldpc = ldpc_bits_len // logM
+    lengths = ConcatLengths(k_ldpc=k, mults=mults, L_unprotected=0)
+    return overall_rate, L_sparc, L_sparc_ldpc, lengths
+
+
+def param_calc_semi_protected(R: float, mults: int, percent_protected: float,
+                              M: int, ldpc: LdpcParams, int_rate: float,
+                              ldpc_K: int):
+    """Semi-protected concatenation bookkeeping
+    (ldpc_sparc/param_calc.py:31-58): an unprotected prefix of sections plus
+    LDPC-protected sections.
+
+    Returns (L_sparc, R_sparc_ldpc, L_sparc_ldpc, lengths, updated_rate).
+    """
+    logM = int(math.log2(M))
+    k_ldpc = ldpc_K * mults
+    n_ldpc = int(k_ldpc / int_rate)
+    assert n_ldpc % logM == 0
+    unprotected_bits = int((k_ldpc * (1 - percent_protected)) / percent_protected)
+    unprotected_bits = int(math.ceil(unprotected_bits / logM) * logM)
+
+    L_sparc_ldpc_logM = n_ldpc + unprotected_bits
+    L_sparc_ldpc = L_sparc_ldpc_logM // logM
+    L_unprotected = unprotected_bits // logM
+
+    k = k_ldpc + unprotected_bits
+    n = int(k / R)
+    updated_rate = k / n
+    L_sparc = k // logM
+    R_sparc_ldpc = L_sparc_ldpc_logM / n
+
+    lengths = ConcatLengths(k_ldpc=k_ldpc, mults=mults, L_unprotected=L_unprotected)
+    return L_sparc, R_sparc_ldpc, L_sparc_ldpc, lengths, updated_rate

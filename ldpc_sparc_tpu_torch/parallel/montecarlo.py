@@ -1,0 +1,177 @@
+"""Monte-Carlo LDPC waterfall campaign on one device.
+
+Counterpart of the single-device campaign of
+`ldpc_sparc_tpu/parallel/montecarlo.py` (`_batch_counts`,
+`_ldpc_block_counts`, `ldpc_waterfall_campaign`): the adaptive-SNR
+protocol of the reference's sim() (ldpc_jossy/py/ldpc_awgn.py:60-123) over
+batches of random codewords, each batch encoded, sent as BPSK over AWGN and
+decoded by one batched BP call.
+
+Randomness: batch `ctr` (the index of its first codeword in the campaign's
+running counter) draws its bits and noise from one `torch.Generator` on the
+campaign's device, seeded from `rng.derive(seed, ctr)`. A batch is then a
+function of (seed, ctr) alone, which is what makes the pipelined loop, the
+serial loop and a resumed run give identical records. The streams are not
+the JAX package's (Threefry cannot be reproduced), so the two packages'
+counters agree statistically, not bit for bit.
+
+The JAX package's SPARC and concatenated Monte Carlo and its mesh fan-out
+are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import inspect
+import math
+
+import numpy as np
+import torch
+
+from ..config import LdpcParams
+from ..models.ldpc import LdpcCode, get_code
+from ..ops.bp import bp_decode
+from ..utils import rng as rngmod
+
+
+def _batch_counts(code: LdpcCode, snr_db: float, gen: torch.Generator,
+                  batch: int, max_iters: int, dectype: str,
+                  bp_kernel: bool) -> torch.Tensor:
+    """Encode, transmit and decode one batch of random codewords; returns
+    (bit_errs, block_errs, iters) summed over the batch, as one (3,) int64
+    tensor on the generator's device (one copy to read back)."""
+    dev = gen.device
+    sigma2 = 1.0 / 10 ** (snr_db / 10.0)
+    u = torch.randint(0, 2, (batch, code.K), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x = code.encode(u)
+    noise = torch.randn(batch, code.N, generator=gen, device=dev)
+    y = (1.0 - 2.0 * x.to(torch.float32)) + math.sqrt(sigma2) * noise  # BPSK
+    llr = (2.0 / sigma2) * y                      # ch2llr (ldpc_awgn.py:51-53)
+    method = "minsum" if dectype == "minsum" else "sumprod"
+    res = bp_decode(llr, code.graph, max_iters, method, 0.7, bp_kernel=bp_kernel)
+    biterrs = (x != (res.app < 0).to(torch.int32)).sum(1)
+    return torch.stack([biterrs.sum(), (biterrs > 0).sum(),
+                        res.iterations.sum(dtype=torch.int64)])
+
+
+def _batch_generator(seed, ctr: int, device) -> torch.Generator:
+    return rngmod.root_generator(rngmod.derive(seed, int(ctr)), device)
+
+
+def _ldpc_block_counts(code: LdpcCode, snr_db: float, seed, ctr: int,
+                       batch: int, max_iters: int, dectype: str, device="cpu",
+                       bp_kernel: bool = True):
+    """Decode one batch of random codewords at SNR (dB); returns
+    (bit_errs, block_errs, iters) summed over trials ctr..ctr+batch, read
+    back in one device-to-host copy."""
+    out = _batch_counts(code, snr_db, _batch_generator(seed, ctr, device),
+                        batch, max_iters, dectype, bp_kernel)
+    be, bl, it = out.tolist()
+    return be, bl, it
+
+
+def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
+                            n_measurements: int = 24,
+                            c_awgn_offset: float = 1.0, p_step: float = 100.0,
+                            min_errors: int = 100, max_blocks: int = 400000,
+                            batch: int = 128, dectype: str = "sumprod2",
+                            max_iters: int = 200, pipelined: bool = True,
+                            on_point=None, bp_kernel: bool = True,
+                            start_point: int = 0, start_snr=None,
+                            start_ctr: int = 0, device="cpu"):
+    """Adaptive-SNR BER waterfall measurement (sim(), ldpc_awgn.py:60-123).
+
+    Per SNR point, decodes batches of `batch` random codewords on `device`
+    until min_errors block errors (or max_blocks), then steps
+    SNR += sqrt(p_step / nblocks) — the reference's heuristic (:116).
+    `on_point(record, state)` is called after each measured point; the
+    optional trailing `state` is the dict {"point", "next_snr", "ctr"} a
+    resume needs (single-arg callbacks get just the record).
+
+    Resume: pass start_point (first unmeasured point index), start_snr (the
+    SNR that point should measure at) and start_ctr (the running codeword
+    counter) from the state of the last measured point, and the campaign
+    continues exactly where the interrupted run stopped.
+
+    pipelined: dispatch the next batch before reading the current one's
+    counters (on a card the read is an asynchronous copy into pinned memory
+    and an event, so the next batch is queued before the host waits).
+    False reads each batch before the next is made. Both give identical
+    records.
+
+    Returns the list of NEWLY measured records in the reference's 10-field
+    tuple schema (standard, rate, z, ptype, SNR, nblocks, nblockerrors,
+    nbits, nbiterrors, niters) — the data/results.txt:1 format.
+    """
+    code = get_code(ldpc_params.standard, ldpc_params.rate, ldpc_params.z,
+                    ldpc_params.ptype)
+    device = torch.device(device)
+    R = ldpc_params.rate_float
+    snr = 10.0 * np.log10(2.0 ** R - 1.0) + c_awgn_offset
+    if start_snr is not None:
+        snr = float(start_snr)
+    records = []
+    ctr = int(start_ctr)
+    on_point_takes_ctr = (on_point is not None and
+                          len(inspect.signature(on_point).parameters) >= 2)
+
+    # Pipelined: the NEXT batch (same SNR, next counter window) is
+    # dispatched before the current batch's counters are read back. When a
+    # point stops, the one speculative batch is discarded and the counter
+    # rewound to its start, so the next point consumes exactly the windows
+    # the serial loop would have: the records are identical.
+    def dispatch(snr_now, ctr0):
+        if not pipelined:
+            return None                      # computed in read()
+        counts = _batch_counts(code, snr_now, _batch_generator(seed, ctr0, device),
+                               batch, max_iters, dectype, bp_kernel)
+        if counts.device.type != "cuda":
+            return counts, None
+        host = torch.empty(3, dtype=torch.int64, pin_memory=True)
+        host.copy_(counts, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(counts.device))
+        return host, done
+
+    def read(fut, snr_now, ctr0):
+        if not pipelined:
+            return _ldpc_block_counts(code, snr_now, seed, ctr0, batch,
+                                      max_iters, dectype, device, bp_kernel)
+        host, done = fut
+        if done is not None:
+            done.synchronize()
+        be, bl, it = host.tolist()
+        return be, bl, it
+
+    for point in range(int(start_point), n_measurements):
+        nbit = nblk = nblocks = nit = 0
+        inflight = None  # (ctr0, future)
+        while nblk < min_errors and nblocks < max_blocks:
+            if inflight is None:
+                inflight = (ctr, dispatch(snr, ctr))
+                ctr += batch
+            spec = (ctr, dispatch(snr, ctr))  # speculative, same SNR
+            ctr += batch
+            be, bl, it = read(inflight[1], snr, inflight[0])
+            inflight = spec
+            nbit += be
+            nblk += bl
+            nit += it
+            nblocks += batch
+        # the speculative batch belongs to this point's SNR; the next point
+        # measures elsewhere — discard it and rewind the counter (inflight is
+        # None only if the stop condition held at once, e.g. min_errors=0)
+        if inflight is not None:
+            ctr = inflight[0]
+        rec = (ldpc_params.standard, ldpc_params.rate, ldpc_params.z,
+               ldpc_params.ptype, float(snr), nblocks, nblk,
+               nblocks * code.K, nbit, nit)
+        records.append(rec)
+        snr += float(np.sqrt(p_step / nblocks))
+        if on_point is not None:
+            if on_point_takes_ctr:
+                on_point(rec, {"point": point, "next_snr": float(snr),
+                               "ctr": ctr})
+            else:
+                on_point(rec)
+    return records

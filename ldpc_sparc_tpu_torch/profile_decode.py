@@ -1,10 +1,13 @@
-"""Where the time of one batched AMP decode goes on the card.
+"""Where the time of one batched decode goes on the card.
 
-    python -m ldpc_sparc_tpu_torch.profile_decode [--batch 256] [--out FILE]
+    python -m ldpc_sparc_tpu_torch.profile_decode [--path amp|bp] [--batch 256] [--out FILE]
 
-Builds the main path's problem (plain SPARC, L=1024, M=512, R=1.0, P=15,
-awgn_var 1, t_max 25, seed 0), decodes it once to warm up, then traces one
-decode of the kernel path and one of the plain path with `torch.profiler`.
+Builds the problem `bench.py` times for the path: for `amp` (the default)
+a plain SPARC at L=1024, M=512, R=1.0, P=15, awgn_var 1, t_max 25, seed 0;
+for `bp` 802.11n r=1/2 z=27 codewords at sigma^2 = 10^-0.2, decoded by
+sumprod2 for at most 50 iterations. It decodes once to warm up, then traces
+one decode of the kernel path and one of the plain path with
+`torch.profiler`.
 For each it prints the wall time (host clock around a synchronised decode),
 the device time summed over kernels, the device's idle share of the wall
 time, and the kernels by device time. With --out it also writes the
@@ -21,7 +24,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import DecodeParams, SparcDesign, SparcParams
+from . import DecodeParams, SparcDesign, SparcParams, get_code
 from .models.sparc import awgn_channel, decode_batch
 from .utils import bits as bitops
 
@@ -56,6 +59,7 @@ def _trace(fn) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("amp", "bp"), default="amp")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the numbers as JSON here")
@@ -65,21 +69,35 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    params, decode, awgn_var = SparcParams(P=15.0, R=1.0, L=1024, M=512), \
-        DecodeParams(t_max=25), 1.0
-    design = SparcDesign.for_params(params, awgn_var, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    bits = bitops.random_bits(gen, args.batch * params.bit_len).reshape(
-        args.batch, params.bit_len)
-    y = awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)),
-                     awgn_var, gen)
-    out = {"card": torch.cuda.get_device_name(0), "batch": args.batch}
-    for path, kw in (("kernel", {}),
-                     ("plain", dict(fused_denoiser=False, fwht_kernel=False))):
-        res = _trace(lambda: decode_batch(y, design, params, decode, awgn_var, **kw))
+    out = {"card": torch.cuda.get_device_name(0), "path": args.path,
+           "batch": args.batch}
+    if args.path == "amp":
+        params, decode, awgn_var = SparcParams(P=15.0, R=1.0, L=1024, M=512), \
+            DecodeParams(t_max=25), 1.0
+        design = SparcDesign.for_params(params, awgn_var, seed=0, device=dev)
+        bits = bitops.random_bits(gen, args.batch * params.bit_len).reshape(
+            args.batch, params.bit_len)
+        y = awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)),
+                         awgn_var, gen)
+        paths = {"kernel": lambda: decode_batch(y, design, params, decode, awgn_var),
+                 "plain": lambda: decode_batch(y, design, params, decode, awgn_var,
+                                               fused_denoiser=False,
+                                               fwht_kernel=False)}
+    else:
+        code = get_code("802.11n", "1/2", 27)
+        x = code.encode(torch.randint(0, 2, (args.batch, code.K), generator=gen,
+                                      device=dev))
+        sigma2 = 10 ** -0.2
+        llr = 2 / sigma2 * ((1 - 2 * x.float()) + sigma2 ** 0.5 * torch.randn(
+            args.batch, code.N, generator=gen, device=dev))
+        paths = {"kernel": lambda: code.decode(llr, 50, "sumprod2"),
+                 "plain": lambda: code.decode(llr, 50, "sumprod2", bp_kernel=False)}
+    for path, fn in paths.items():
+        res = _trace(fn)
         out[path] = res
-        print(f"{path} path, batch {args.batch}: wall {res['wall_ms']:.3f} ms, "
-              f"device {res['device_ms']:.3f} ms, idle {res['idle_share']:.3f}")
+        print(f"{args.path} {path} path, batch {args.batch}: wall {res['wall_ms']:.3f} "
+              f"ms, device {res['device_ms']:.3f} ms, idle {res['idle_share']:.3f}")
         for op in res["ops"][:args.top]:
             print(f"  {op['device_ms']:10.3f} ms {op['count']:6d}x  "
                   f"{op['name'][:100]}")

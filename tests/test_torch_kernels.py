@@ -9,15 +9,22 @@ Tolerances: the signed FWHT is float32 in both versions, so the kernel
 stays within 1e-5 * max|ref| (log2(w) stages of float32 rounding); the
 denoiser tail uses tests/test_denoiser_pallas.py's tolerances (s to rtol
 1e-6, the softmax and energies to rtol 1e-5, since exp and the sums
-reassociate).
+reassociate). The BP decode must give the plain decode's iteration counts
+on every codeword, and its decisions and APP (rtol 1e-5, atol 1e-4, the
+bound tests/test_bp_pallas.py holds the TPU kernel to) on every codeword
+that stopped by parity.
 """
 
 import pytest
 import torch
 
-from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams
+from ldpc_sparc_tpu_torch import (DecodeParams, LdpcParams, SparcDesign,
+                                  SparcParams, get_code,
+                                  ldpc_waterfall_campaign)
 from ldpc_sparc_tpu_torch.models import sparc
-from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
+from ldpc_sparc_tpu_torch.models.ldpc_tables import get_protograph
+from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
+from ldpc_sparc_tpu_torch.ops.bp import TannerGraph
 from ldpc_sparc_tpu_torch.utils import bits as bitops
 
 
@@ -114,3 +121,118 @@ def test_decode_kernel_path_matches_plain_path():
                                      fused_denoiser=False, fwht_kernel=False)
     assert torch.equal(beta_k, beta_p) and torch.equal(t_k, t_p)
     assert torch.equal(bitops.msg_vector_to_bits(beta_k, params.M), bits)
+
+
+# ---- K4: the whole LDPC BP decode ------------------------------------------
+# (code, method, SNR in dB of the random noisy inputs): the largest check
+# degree (802.11n r=5/6, dc_max 20), the largest z, and the largest shared
+# state (802.16 r=3/4 B z=150, over 48 KB, at an SNR where nearly every
+# codeword stops by parity, so the gate holds its decisions).
+BP_CASES = {
+    "11n-r1/2-z27-sumprod": (("802.11n", "1/2", 27, "A"), "sumprod", 1.5),
+    "11n-r5/6-z81-minsum": (("802.11n", "5/6", 81, "A"), "minsum", 5.5),
+    "16-r1/2-z150-sumprod": (("802.16", "1/2", 150, "A"), "sumprod", 1.5),
+    "16-r3/4B-z150-sumprod": (("802.16", "3/4", 150, "B"), "sumprod", 4.5),
+}
+BP_ITERS = 50
+
+
+def _bp_inputs(cfg, snr_db, batch, dev, seed=0):
+    code = get_code(*cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = code.encode(torch.randint(0, 2, (batch, code.K), generator=gen, device=dev))
+    sigma2 = 10 ** (-snr_db / 10)
+    y = (1 - 2 * x.float()) + sigma2 ** 0.5 * torch.randn(
+        batch, code.N, generator=gen, device=dev)
+    return code, x, (2 / sigma2 * y).contiguous()
+
+
+def _bp_gate(got, want, max_iters):
+    """Iterations equal everywhere; decisions equal and APP within rtol 1e-5
+    / atol 1e-4 on every codeword that stopped by parity (a codeword that
+    runs to max_iters may drift apart at float32 rounding)."""
+    assert torch.equal(got.iterations, want.iterations)
+    stopped = want.iterations < max_iters
+    assert torch.equal(got.app[stopped] < 0, want.app[stopped] < 0)
+    torch.testing.assert_close(got.app[stopped], want.app[stopped], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 256])
+@pytest.mark.parametrize("name", sorted(BP_CASES))
+def test_bp_decode_kernel_matches_plain(name, batch):
+    dev = _card()
+    cfg, method, snr = BP_CASES[name]
+    code, x, llr = _bp_inputs(cfg, snr, batch, dev)
+    correction = method != "minsum"
+    before = bp_cuda.LAUNCHES
+    got = bp_cuda.bp_decode_kernel(llr, code.graph, BP_ITERS, correction, 0.7)
+    assert bp_cuda.LAUNCHES == before + 1
+    want = bp_cuda.bp_decode_ref(llr, code.graph, BP_ITERS, correction, 0.7)
+    torch.cuda.synchronize()
+    assert got.app.shape == (batch, code.N) and got.iterations.dtype == torch.int32
+    _bp_gate(got, want, BP_ITERS)
+
+
+@pytest.mark.cuda
+def test_bp_decode_kernel_matches_plain_at_campaign_shape():
+    """The waterfall campaign's decode: 802.16 r=1/2 z=27, sumprod2, batch
+    512, at most 200 iterations, at an SNR where codewords stop anywhere
+    from the first iteration to well past 100."""
+    dev = _card()
+    code, x, llr = _bp_inputs(("802.16", "1/2", 27, "A"), 2.5, 512, dev)
+    got = bp_cuda.bp_decode_kernel(llr, code.graph, 200, True, 0.7)
+    want = bp_cuda.bp_decode_ref(llr, code.graph, 200, True, 0.7)
+    torch.cuda.synchronize()
+    _bp_gate(got, want, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BP_CASES))
+def test_bp_decode_kernel_noiseless_fixed_point(name):
+    dev = _card()
+    cfg, method, _ = BP_CASES[name]
+    code = get_code(*cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = code.encode(torch.randint(0, 2, (5, code.K), generator=gen, device=dev))
+    res = code.decode(10.0 * (0.5 - x.float()), 200, method)
+    assert torch.equal(res.iterations, torch.zeros_like(res.iterations))
+    assert torch.equal((res.app < 0).int(), x)
+
+
+@pytest.mark.cuda
+def test_bp_decode_kernel_rejects_bad_arguments():
+    dev = _card()
+    code = get_code("802.11n", "1/2", 27)
+    ch = torch.zeros(4, code.N, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        bp_cuda.bp_decode_kernel(torch.zeros(code.N, 4, device=dev).t(),
+                                 code.graph, 10, True, 0.7)
+    with pytest.raises(ValueError, match="float32"):
+        bp_cuda.bp_decode_kernel(ch.double(), code.graph, 10, True, 0.7)
+    big = TannerGraph.build(get_protograph("802.16", "1/2", 1000), 1000)
+    with pytest.raises(ValueError, match="shared memory"):
+        bp_cuda.bp_decode_kernel(torch.zeros(1, big.Nv, device=dev), big, 10,
+                                 True, 0.7)
+
+
+@pytest.mark.cuda
+def test_bp_paths_on_the_card():
+    """LdpcCode.decode launches K4 once per call on a card (and not with
+    bp_kernel=False); the campaign's pipelined loop (pinned copy + event)
+    gives the serial loop's records."""
+    dev = _card()
+    code, x, llr = _bp_inputs(("802.11n", "1/2", 27, "A"), 2.0, 64, dev)
+    before = bp_cuda.LAUNCHES
+    k = code.decode(llr, 50, "sumprod2")
+    assert bp_cuda.LAUNCHES == before + 1
+    p = code.decode(llr, 50, "sumprod2", bp_kernel=False)
+    assert bp_cuda.LAUNCHES == before + 1
+    _bp_gate(k, p, 50)
+    params = LdpcParams(standard="802.16", rate="1/2", z=27, ptype="A")
+    kw = dict(seed=0, n_measurements=3, min_errors=20, max_blocks=2048,
+              batch=128, max_iters=50, device=dev)
+    piped = ldpc_waterfall_campaign(params, pipelined=True, **kw)
+    serial = ldpc_waterfall_campaign(params, pipelined=False, **kw)
+    assert piped == serial and len(piped) == 3
