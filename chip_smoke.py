@@ -13,6 +13,12 @@ times the paths `bench.py` times:
     sigma^2 = 10^-0.2, sumprod2, at most 50 iterations (phases 6-7), and
     the waterfall campaign's 16-point segment, 802.16 r=1/2 z=27, seed 7,
     batch 512, sumprod2, at most 200 iterations (phase 8).
+  * slice C: the spatially coupled SPARC decode of the reference's large
+    SC configuration (L=2048, M=512, omega=6, Lambda=32, R=1.5, P=15,
+    awgn_var 1, t_max 40, 64 codewords; E=192 design blocks of width 2^15)
+    through K1+K3, K2+K3 and the plain path (phases 9-10), and the
+    `sparc-sweep` entry point on it through K2, resumed from its store
+    (phase 11).
 
 Each phase prints one line. The line before the last is a JSON
 summary of the kernels; the last line is
@@ -64,6 +70,28 @@ BP_TOL = (1e-5, 1e-4)
 # stops after 29 iterations, and seeds 1-5 each hold one or two codewords
 # that run to the cap
 BP_DRAW_SEEDS = (0, 1, 2, 3, 4, 5)
+
+# slice C: the reference's large SC decode (examples/sc_decode_wave.py:50-52,
+# benchmarks/reproduce_baselines.py:92-95)
+SC = dict(P=15.0, R=1.5, L=2048, M=512, spatially_coupled=True, omega=6, Lambda=32)
+SC_AWGN, SC_T_MAX, SC_BATCH, SC_REPS = 1.0, 40, 64, 3
+# K2 against its plain version on Gaussian rows: both round X and T to bf16,
+# but the float32 sums of T run in another order, so a T entry near a bf16
+# rounding boundary can round the other way: one bf16 ulp (2^-8 of that
+# entry) on about 2^-10 of the entries, a relative Frobenius error near
+# 1e-4 at 2^19. A wrong Hadamard sign or index moves it past 5e-3 (one bad
+# entry of H_256 alone gives 8e-3), so 1e-3 separates the two.
+K2_REL_BOUND = 1e-3
+# K2 against the float32 K1: the JAX package's bf16 bound,
+# max|d| / mean|ref| <= 0.04 (benchmarks/fwht_pallas_check.py:154-157)
+K2_F32_BOUND = 0.04
+# phase 11: sparc-sweep on the SC code, SNR 10, 15, 20 (awgn_var 1.5, 1, 0.75)
+SWEEP_TRIALS = 16
+SWEEP_FLAGS = ["--P", "15", "--R", "1.5", "--L", "2048", "--M", "512",
+               "--spatially-coupled", "--omega", "6", "--Lambda", "32",
+               "--t-max", str(SC_T_MAX), "--trials", str(SWEEP_TRIALS), "--num-snrs", "3",
+               "--snr-start", "10", "--snr-stop", "20", "--fwht-mode", "2mm",
+               "--device", "cuda"]
 
 
 def phase(n, text):
@@ -254,6 +282,230 @@ def slice_b(dev, card):
             "ms": k4_ms, "plain_ms": k4_plain_ms}
 
 
+def sc_inputs(design, params, batch, dev):
+    """(beta0, y) of `batch` random SC codewords at SC_AWGN: bits and noise
+    from a CPU generator seeded SEED (a CPU run reproduces them), the
+    codeword through the plain float32 product."""
+    import torch
+    from ldpc_sparc_tpu_torch.utils import bits as bitops
+    gen = torch.Generator().manual_seed(SEED)
+    bits = torch.randint(0, 2, (batch, params.bit_len), generator=gen).bool()
+    noise = torch.randn(batch, design.n, generator=gen)
+    beta0 = bitops.bits_to_msg_vector(bits.to(dev), params.M)
+    x = design.ab(beta0, fwht_kernel=False)
+    return beta0, x + SC_AWGN ** 0.5 * noise.to(dev)
+
+
+def slice_c(dev, card, errs):
+    """Phases 9-11; returns K2's entry of the kernels line. K1 and K3 are
+    also checked against their plain versions at the SC decode's shapes,
+    and their errors there join `errs`."""
+    import os
+    import tempfile
+    import torch
+    from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams, sparc_se
+    from ldpc_sparc_tpu_torch.models.sparc import decode_batch
+    from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
+
+    params = SparcParams(**SC)
+    design = SparcDesign.for_params(params, SC_AWGN, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # -- 9: K2 against its plain version ----------------------------------------
+    exact = []
+    for log_w in (12, 15, 16):
+        w = 1 << log_w
+        x = torch.randint(-1, 2, (4, w), generator=gen, device=dev).float()
+        signs = (torch.randint(0, 2, (2, w), generator=gen, device=dev) * 2 - 1).float()
+        for sg, pre in ((signs, True), (signs, False), (None, True)):
+            got = wht_cuda.fwht_signed_2mm(x, sg, pre)
+            want = wht_cuda.fwht_signed_ref(x, sg, pre)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 on ternary rows at 2^{log_w} pre={pre} "
+                                     f"signs={sg is not None} is not exact")
+        exact.append(f"2^{log_w}")
+    k2_err, parts, times = 0.0, [], {}
+    head_signs = (torch.randint(0, 2, (1, 1 << 19), generator=gen, device=dev) * 2
+                  - 1).float()
+    for name, rows, signs in (("SC", SC_BATCH * design.E, design.signs),
+                              ("headline", BATCH, head_signs)):
+        x = torch.randn(rows, signs.shape[1], generator=gen, device=dev)
+        for pre in (True, False):
+            got = wht_cuda.fwht_signed_2mm(x, signs, pre)
+            want = wht_cuda.fwht_signed_2mm_ref(x, signs, pre)
+            torch.cuda.synchronize()
+            rel = float((got - want).norm() / want.norm())
+            err = float((got - want).abs().max())
+            del want
+            f32 = wht_cuda.fwht_signed(x, signs, pre)
+            torch.cuda.synchronize()
+            f32_rel = float((got - f32).abs().max() / f32.abs().mean())
+            del got
+            k1_err, k1_bound = fwht_err(f32, wht_cuda.fwht_signed_ref(x, signs, pre))
+            del f32
+            if not k1_err <= k1_bound:
+                raise AssertionError(f"fwht_signed vs plain at {name} pre={pre}: "
+                                     f"{k1_err} > {k1_bound}")
+            errs["fwht_signed"] = max(errs["fwht_signed"], k1_err)
+            if not rel <= K2_REL_BOUND:
+                raise AssertionError(f"K2 vs plain at {name} pre={pre}: relative "
+                                     f"error {rel} > {K2_REL_BOUND}")
+            if not f32_rel <= K2_F32_BOUND:
+                raise AssertionError(f"K2 vs float32 K1 at {name} pre={pre}: "
+                                     f"{f32_rel} > {K2_F32_BOUND}")
+            k2_err = max(k2_err, err)
+            times[name, pre] = (
+                cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, signs, pre)),
+                cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, signs, pre), reps=5),
+                cuda_ms(lambda: wht_cuda.fwht_signed(x, signs, pre)),
+                cuda_ms(lambda: wht_cuda.fwht_signed_ref(x, signs, pre), reps=5))
+            parts.append(f"{name} ({rows}, 2^{signs.shape[1].bit_length() - 1}) "
+                         f"{'pre' if pre else 'post'}: rel {rel:.2e}, max|d| {err:.2e}, "
+                         f"vs f32 K1 {f32_rel:.4f}; K1 vs its plain version max|d| "
+                         f"{k1_err:.2e} (bound {k1_bound:.2e}); K2 "
+                         f"{times[name, pre][0]:.4f} ms, plain "
+                         f"{times[name, pre][1]:.4f} ms, K1 {times[name, pre][2]:.4f} "
+                         f"ms, K1's plain {times[name, pre][3]:.4f} ms")
+        del x
+    phase(9, f"fwht_signed_2mm on {card}: bit-exact on ternary rows at "
+             f"{', '.join(exact)} (pre, post, no signs); Gaussian rows against "
+             f"plain (relative Frobenius <= {K2_REL_BOUND:g}) and against float32 K1 "
+             f"(max|d|/mean|K1| <= {K2_F32_BOUND:g}); K1 against its plain version "
+             f"(max|d| <= {FWHT_REL_BOUND:g} max|ref|): " + "; ".join(parts))
+
+    # -- 10: the SC decode through K1+K3, K2+K3 and the plain path --------------
+    # K3 against its plain version at the SC decode's (batch, L, M) first
+    shape = (SC_BATCH, params.L, params.M)
+    beta = torch.softmax(3 * torch.randn(shape, generator=gen, device=dev),
+                         -1).reshape(SC_BATCH, -1)
+    azo = 2 * torch.randn(SC_BATCH, params.L * params.M, generator=gen, device=dev)
+    tau = 0.5 + 1.5 * torch.rand(SC_BATCH, params.L, generator=gen, device=dev)
+    got = denoiser_cuda.fused_denoise_update(beta, azo, tau, params.M)
+    want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, params.M)
+    torch.cuda.synchronize()
+    k3_parts = []
+    for key, g, w_ in zip(DENOISE_TOL, got, want):
+        torch.testing.assert_close(g, w_, rtol=DENOISE_TOL[key][0],
+                                   atol=DENOISE_TOL[key][1])
+        e = float((g - w_).abs().max())
+        errs["fused_denoise_update"] = max(errs["fused_denoise_update"], e)
+        k3_parts.append(f"{key} {e:.2e}")
+    k3_ms = (cuda_ms(lambda: denoiser_cuda.fused_denoise_update(beta, azo, tau,
+                                                                params.M)),
+             cuda_ms(lambda: denoiser_cuda.fused_denoise_update_ref(beta, azo, tau,
+                                                                    params.M), reps=5))
+    del beta, azo, tau, got, want
+
+    decode = DecodeParams(t_max=SC_T_MAX)
+    beta0, y = sc_inputs(design, params, SC_BATCH, dev)
+    paths = {"K1+K3": {}, "K2+K3": dict(fwht_mode="2mm"),
+             "plain": dict(fused_denoiser=False, fwht_kernel=False)}
+    out, counts = {}, {}
+    for name, kw in paths.items():
+        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        out[name] = decode_batch(y, design, params, decode, SC_AWGN, **kw)
+        torch.cuda.synchronize()
+        counts[name] = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM,
+                        denoiser_cuda.LAUNCHES)
+    it = SC_T_MAX - 1
+    want_counts = {"K1+K3": (2 * it - 1, 0, it), "K2+K3": (0, 2 * it - 1, it),
+                   "plain": (0, 0, 0)}
+    if counts != want_counts:
+        raise AssertionError(f"SC decode launches (K1, K2, K3) {counts}, "
+                             f"expected {want_counts}")
+    sec_errs = {}
+    for name, (beta, t_final) in out.items():
+        if beta.shape != beta0.shape or not bool(torch.isfinite(beta).all()):
+            raise AssertionError(f"SC decode {name}: wrong shape or not finite")
+        sec_errs[name] = int((beta != beta0).reshape(SC_BATCH, params.L, -1)
+                             .any(-1).sum())
+    (b1, t1), (b2, t2), (bp, tp) = out["K1+K3"], out["K2+K3"], out["plain"]
+    if sec_errs["plain"] != 0:
+        raise AssertionError(f"SC decode plain path: {sec_errs['plain']} section errors")
+    if not torch.equal(b1, bp):
+        raise AssertionError("SC decode: K1+K3 and plain decisions differ")
+    if int((t1 - tp).abs().max()) > 1:
+        raise AssertionError(f"SC decode: t_final differs by more than 1: "
+                             f"{t1.tolist()} vs {tp.tolist()}")
+    if sec_errs["K2+K3"] > sec_errs["plain"]:
+        raise AssertionError(f"SC decode K2+K3: {sec_errs['K2+K3']} section errors")
+
+    def window(kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(SC_REPS):
+            decode_batch(y, design, params, decode, SC_AWGN, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    best = {k: float("inf") for k in paths}
+    for i in range(4):   # alternate the order: K1, K2, plain, plain, K2, K1, ...
+        for name in (list(paths) if i % 2 == 0 else list(paths)[::-1]):
+            best[name] = min(best[name], window(paths[name]))
+    rate = {k: SC_BATCH * it * SC_REPS / v for k, v in best.items()}
+    tf = {k: f"{int(t.min())}-{int(t.max())}" for k, (_, t) in out.items()}
+    phase(10, f"SC decode L={SC['L']} M={SC['M']} omega={SC['omega']} "
+              f"Lambda={SC['Lambda']} R={SC['R']} awgn_var {SC_AWGN} t_max {SC_T_MAX} "
+              f"batch {SC_BATCH} (E={design.E}, w=2^{design.w.bit_length() - 1}) on "
+              f"{card}: fused_denoise_update vs plain at {shape}: "
+              + ", ".join(k3_parts) + f" ({k3_ms[0]:.4f} ms, plain {k3_ms[1]:.4f} "
+              f"ms) | section errors {sec_errs} | t_final {tf} | launches "
+              f"(K1, K2, K3) {counts} | K1+K3 decisions equal to plain, t_final "
+              f"within 1 | sc_amp_iterations_per_s "
+              + ", ".join(f"{k} {v:.1f} (best window {best[k]:.4f} s)"
+                          for k, v in rate.items()))
+    del y, beta0, out
+
+    # -- 11: the sparc-sweep entry point, through K2, then resumed ---------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "ldpc_sparc_tpu_torch.cli", "sparc-sweep",
+               *SWEEP_FLAGS, "--out", tmp]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        first = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                               env=env)
+        dt = time.perf_counter() - t0
+        if first.returncode != 0:
+            raise AssertionError(f"sparc-sweep failed:\n{first.stderr[-3000:]}")
+        store = os.path.join(tmp, "sparc_sweep.jsonl")
+        with open(store) as f:
+            rows = [json.loads(ln) for ln in f if ln.strip()]
+        t0 = time.perf_counter()
+        again = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                               env=env)
+        dt_again = time.perf_counter() - t0
+        with open(store) as f:
+            n_lines = sum(1 for ln in f if ln.strip())
+    if again.returncode != 0 or again.stdout.strip() or n_lines != len(rows):
+        raise AssertionError(f"sparc-sweep rerun decoded again or failed: "
+                             f"{again.stdout!r} {again.stderr[-2000:]}")
+    keys = ("key", "awgn_var", "ber", "ser", "fer", "avg_iters", "bit_errs", "bits",
+            "sec_errs", "sections", "frame_errs", "frames", "iters", "snr", "snr_db")
+    if len(rows) != 3 or any(
+            set(r) != set(keys) or r["bits"] != SWEEP_TRIALS * params.bit_len
+            or r["frames"] != SWEEP_TRIALS or not 0 <= r["ber"] <= 1 for r in rows):
+        raise AssertionError(f"sparc-sweep rows are malformed: {rows}")
+    rows.sort(key=lambda r: r["snr"])
+    if not all(b["ber"] <= a["ber"] for a, b in zip(rows, rows[1:])):
+        raise AssertionError("sparc-sweep BER rises with SNR")
+    se = [float(sparc_se(r["awgn_var"], params, SC_T_MAX, 2000, seed=SEED,
+                         device=dev)[0][-1].mean()) for r in rows]
+    phase(11, f"sparc-sweep --fwht-mode 2mm on the SC code, {SWEEP_TRIALS} trials "
+              f"per point, "
+              f"on {card}: {dt:.1f} s, rerun {dt_again:.1f} s decoding nothing | "
+              + ", ".join(f"SNR {r['snr']:g}: BER {r['ber']:.3e} SER {r['ser']:.3e} "
+                          f"FER {r['fer']:.3f} avg iters {r['avg_iters']:.2f}, SE "
+                          f"final psi {p:.3e}" for r, p in zip(rows, se)))
+
+    return {"name": "fwht_signed_2mm", "route": "cuda",
+            "source": "ldpc_sparc_tpu_torch/csrc/fwht_2mm.cu",
+            "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:103",
+            "launches": counts["K2+K3"][1], "max_abs_err": k2_err,
+            "ms": (times["SC", True][0] + times["SC", False][0]) / 2,
+            "plain_ms": (times["SC", True][1] + times["SC", False][1]) / 2}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -267,6 +519,7 @@ def main():
 
     dev = torch.device("cuda")
     # the plain FWHT is a chain of float32 matmuls: TF32 would break parity
+    torch.set_float32_matmul_precision("highest")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -434,6 +687,8 @@ def main():
              f"({BATCH}, {L}, {M}) {k3[0]:.4f} ms (plain {k3[1]:.4f} ms), "
              f"{4e3 * gb / k3[0]:.0f} GB/s | device copy {copy_gbs:.0f} GB/s")
 
+    k4 = slice_b(dev, card)
+    k2 = slice_c(dev, card, errs)
     kernels = [
         {"name": "fwht_signed", "route": "cuda",
          "source": "ldpc_sparc_tpu_torch/csrc/fwht_signed.cu",
@@ -449,7 +704,8 @@ def main():
          "max_abs_err": errs["fused_denoise_update"],
          "ms": k3[0], "plain_ms": k3[1]},
     ]
-    kernels.append(slice_b(dev, card))
+    kernels.insert(1, k2)
+    kernels.append(k4)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

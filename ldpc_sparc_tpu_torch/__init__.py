@@ -9,21 +9,27 @@ against; the two share no code, and this package imports neither JAX nor
              hand-written Hopper kernels with their plain PyTorch versions
              (`*_cuda.py`, sources in `csrc/`, built by `_build.py` at
              first use)
-  models/    the SPARC codec and AMP decoder; the 802.11n / 802.16 LDPC
-             code library
-  parallel/  the single-device LDPC waterfall campaign
+  models/    the SPARC codec and AMP decoder; state evolution; the
+             802.11n / 802.16 LDPC code library
+  parallel/  the single-device SPARC Monte Carlo and LDPC waterfall campaign
+  io/        the resumable JSONL results store and record helpers
   utils/     bit codecs, generator derivation, error metrics
+  cli.py     `python -m ldpc_sparc_tpu_torch.cli sparc-sweep`
   parity.py  carries a JAX-built design into the port
 
-Ported so far: the plain SPARC AMP decode (real, K=1, SRHT design); LDPC
-BP, the code library and the waterfall campaign.
+Ported so far: the SPARC AMP decode of real, K=1 codes with the SRHT design
+(plain, power-allocated and spatially coupled), state evolution, the SPARC
+Monte Carlo and its sweep CLI; LDPC BP, the code library and the waterfall
+campaign.
 """
 
 from .config import SparcParams, DecodeParams, LdpcParams
 from .ops.transforms import SparcDesign
 from .ops.bp import bp_decode
 from .models.sparc import sparc_sim, amp_decode, awgn_channel
+from .models.state_evolution import sparc_se
 from .models.ldpc import LdpcCode, get_code
-from .parallel.montecarlo import ldpc_waterfall_campaign
+from .parallel.montecarlo import (ldpc_waterfall_campaign, sparc_ber_sweep,
+                                  sparc_mc_counts)
 
 __version__ = "0.1.0"

@@ -102,6 +102,9 @@ def load() -> ctypes.CDLL:
             lib.ldpc_fwht_signed.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
                                              ptr]
             lib.ldpc_fwht_signed.restype = i32
+            lib.ldpc_fwht_2mm.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
+                                          ptr]
+            lib.ldpc_fwht_2mm.restype = i32
             lib.ldpc_denoise_update.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                                 i64, i32, ptr]
             lib.ldpc_denoise_update.restype = i32

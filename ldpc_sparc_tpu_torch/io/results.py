@@ -1,0 +1,228 @@
+"""Resumable results store and the reference-format record helpers.
+
+Counterpart of `ldpc_sparc_tpu/io/results.py` without its plotting
+functions (they need matplotlib; ROADMAP.md queues them). The JSONL store
+format is the JAX package's, so either package reads a store the other
+wrote: one JSON object per line, `{"key": ..., **record}`, the last line of
+a key winning on load. The tuple-line and CSV helpers are copies of the
+originals and give the same text.
+"""
+
+from __future__ import annotations
+
+import ast
+import csv
+import io
+import json
+import math
+from pathlib import Path
+from typing import Iterable, List, Optional, Tuple
+
+
+# Shannon-limit Eb/N0 anchors used by the reference plots
+# (ldpc_jossy/py/disp_res.py:47)
+SHANNON_EBN0_DB = {0.5: 3.1721, 0.667: 4.0926, 0.75: 4.6693, 0.833: 5.3941}
+
+
+class ResultsStore:
+    """Append-only JSONL store with (key -> record) resume semantics."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._seen = {}
+        if self.path.exists():
+            with open(self.path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    rec = json.loads(line)
+                    self._seen[rec["key"]] = rec
+
+    def has(self, key: str) -> bool:
+        return key in self._seen
+
+    def get(self, key: str):
+        return self._seen.get(key)
+
+    def append(self, key: str, record: dict):
+        rec = {"key": key, **record}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        self._seen[key] = rec
+
+    def records(self) -> List[dict]:
+        return list(self._seen.values())
+
+
+# --------------------------------------------------------------------------
+# reference tuple format (results.txt / results.csv)
+#
+# The reference has TWO tuple schemas in the wild:
+#   * the historical 10-field one with the protograph type, used by the
+#     archived data/results.txt and parsed by src/results2csv.c:49-50:
+#       (standard, rate, z, ptype, snr, nblocks, nblockerrors, nbits,
+#        nbiterrors, niterations)
+#   * the 9-field one (no ptype) that the reference campaign script writes
+#     (ldpc_jossy/py/ldpc_awgn.py:110-113).
+# We normalize everything to the 10-field schema (9-field lines get
+# ptype='A', the only type the 9-field script ever ran).
+# --------------------------------------------------------------------------
+
+FIELDS = ("standard", "rate", "z", "ptype", "snr", "nblocks", "nblockerrors",
+          "nbits", "nbiterrors", "niterations")
+
+
+def normalize_record(rec: Tuple) -> Tuple:
+    """Accept a 9- or 10-field measurement tuple; return the 10-field form."""
+    if len(rec) == 10:
+        return tuple(rec)
+    if len(rec) == 9:
+        std, rate, z, snr, nblocks, nblk, nbits, nbit, nit = rec
+        return (std, rate, z, "A", snr, nblocks, nblk, nbits, nbit, nit)
+    raise ValueError(f"measurement tuple has {len(rec)} fields, want 9 or 10")
+
+
+def record_to_tuple_line(rec: Tuple) -> str:
+    """One measurement as the reference's results.txt tuple line
+    (the 10-field schema of data/results.txt:1 / results2csv.c:49-50)."""
+    return repr(normalize_record(rec))
+
+
+def parse_tuple_line(line: str) -> Optional[Tuple]:
+    """Parse a results.txt tuple line, either schema (results2csv.c:48-74
+    handles the 10-field form; ldpc_awgn.py:110 emits the 9-field form)."""
+    line = line.strip()
+    if not (line.startswith("(") and line.endswith(")")):
+        return None
+
+    try:
+        t = ast.literal_eval(line)
+    except (ValueError, SyntaxError):
+        return None
+    if len(t) in (9, 10):
+        return normalize_record(t)
+    return None
+
+
+def _rate_float(rate) -> float:
+    num, den = str(rate).split("/")
+    return int(num) / int(den)
+
+
+def records_to_csv(records: Iterable[Tuple], path=None,
+                   style: str = "reference") -> str:
+    """Measurement tuples -> CSV (replaces src/results2csv.c).
+
+    style="reference" reproduces results2csv.c's exact numeric schema
+    (results2csv.c:62-72, consumed by py/disp_res.py:23-44): no header,
+    standard as 16/11, rate as a decimal, ptype as 0 (A) / 1 (B), then
+    z, snr, nblocks, nblockerrors, nbits, nbiterrors, niterations.
+    style="named" writes a self-describing CSV with a FIELDS header row.
+    """
+    buf = io.StringIO()
+    if style == "named":
+        wr = csv.writer(buf)
+        wr.writerow(FIELDS)
+        for rec in records:
+            wr.writerow(normalize_record(rec))
+    elif style == "reference":
+        for rec in records:
+            std, rate, z, ptype, snr, nblocks, nblk, nbits, nbit, nit = \
+                normalize_record(rec)
+            std_num = 16 if str(std).endswith("6") else 11
+            buf.write("%d, %g, %d, %d, %g, %d, %d, %d, %d, %d\n" % (
+                std_num, _rate_float(rate), 0 if ptype == "A" else 1,
+                int(z), float(snr), int(nblocks), int(nblk), int(nbits),
+                int(nbit), int(nit)))
+    else:
+        raise ValueError(f"unknown CSV style {style!r}")
+    out = buf.getvalue()
+    if path is not None:
+        Path(path).write_text(out)
+    return out
+
+
+def results_txt_to_csv(txt_path, csv_path=None,
+                       style: str = "reference") -> str:
+    """Convert a reference-format results.txt (either tuple schema) to CSV."""
+    records = []
+    with open(txt_path) as f:
+        for line in f:
+            t = parse_tuple_line(line)
+            if t is not None:
+                records.append(t)
+    return records_to_csv(records, csv_path, style=style)
+
+
+_CSV_RATES = {0.5: "1/2", 2 / 3: "2/3", 0.75: "3/4", 5 / 6: "5/6"}
+
+
+def parse_csv_line(line: str) -> Optional[Tuple]:
+    """Parse one numeric CSV row (the results2csv.c:62-72 output schema that
+    py/disp_res.py:23-44 consumes) back into the 10-field tuple record.
+
+    The decimal rate is snapped to the nearest IEEE code rate (the four
+    rates of the 802.11n/802.16 standards are the only ones that exist)."""
+    parts = [p.strip() for p in line.strip().split(",")]
+    if len(parts) != 10:
+        return None
+    try:
+        std_num = int(parts[0])
+        rate_f = float(parts[1])
+        ptype_num = int(parts[2])
+        z = int(parts[3])
+        snr = float(parts[4])
+        ints = [int(p) for p in parts[5:]]
+    except ValueError:
+        return None
+    std = "802.16" if std_num == 16 else "802.11n"
+    rate = min(_CSV_RATES, key=lambda r: abs(r - rate_f))
+    return (std, _CSV_RATES[rate], z, "B" if ptype_num else "A", snr, *ints)
+
+
+def load_records(path) -> List[Tuple]:
+    """Read measurement records from a results file: tuple-line .txt
+    (either schema), the reference's numeric .csv, or our named-header
+    .csv — auto-detected per line."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.split(",")[0] == FIELDS[0]:
+                continue  # blank or named-CSV header
+            t = parse_tuple_line(line)
+            if t is None and not line.startswith("("):
+                parts = [p.strip() for p in line.split(",")]
+                if len(parts) == 10 and not parts[0].isdigit():
+                    # named-CSV row: FIELDS order, textual standard/rate
+                    try:
+                        t = normalize_record((
+                            parts[0], parts[1], int(parts[2]), parts[3],
+                            float(parts[4]), *[int(p) for p in parts[5:]]))
+                    except ValueError:
+                        t = None
+                else:
+                    t = parse_csv_line(line)
+            if t is not None:
+                records.append(t)
+    return records
+
+
+# --------------------------------------------------------------------------
+# derived metrics (disp_res.py equivalents)
+# --------------------------------------------------------------------------
+
+def waterfall_metrics(rec: Tuple) -> dict:
+    """BER / BLER / Eb/N0 for one measurement (disp_res.py derivations)."""
+    std, rate, z, ptype, snr, nblocks, nblk, nbits, nbit, nit = \
+        normalize_record(rec)
+    R = _rate_float(rate)
+    return {
+        "standard": std, "rate": rate, "z": z, "ptype": ptype, "snr_db": snr,
+        "ber": nbit / nbits if nbits else 0.0,
+        "bler": nblk / nblocks if nblocks else 0.0,
+        "ebn0_db": snr - 10.0 * math.log10(R),
+        "avg_iters": nit / nblocks if nblocks else 0.0,
+    }

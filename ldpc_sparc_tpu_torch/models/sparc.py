@@ -9,7 +9,8 @@ state, so the outputs do not depend on what else is in the batch.
 
 Kernels on the path (both run when the tensors are on a card, and their
 plain versions run on the CPU):
-  * the signed FWHT of both design products (`ops/wht_cuda.py`);
+  * the signed FWHT of both design products (`ops/wht_cuda.py`): K1 with
+    `fwht_mode="ms"` (the default), K2 with `fwht_mode="2mm"`;
   * the fused denoiser tail (`ops/denoiser_cuda.py`), whenever the shape is
     eligible and `fused_denoiser` is not False.
 """
@@ -83,7 +84,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
                decode: DecodeParams, awgn_var: float,
                beta0: Optional[torch.Tensor] = None, W=None,
                fused_denoiser: bool | None = None,
-               fwht_kernel: bool = True) -> AmpResult:
+               fwht_kernel: bool = True, fwht_mode: str = "ms") -> AmpResult:
     """AMP decoding of real SPARC codewords y (..., n).
 
     Per iteration (unified 2-D base-matrix form, Lr x Lc blocks):
@@ -102,7 +103,12 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     fused_denoiser: None takes the fused tail (`fused_denoise_update`)
     whenever `fused_eligible` holds, True demands it, False takes the
     plain `mmse_denoise` tail. fwht_kernel=False runs the design products
-    on the plain FWHT chain.
+    on the plain FWHT chain. fwht_mode: "ms" (K1, float32) or "2mm" (K2,
+    bf16 operands), the JAX package's `set_fwht_backend` mode.
+
+    Every base-matrix family of real, K=1 codes takes this one loop: the
+    plain code (W is 1 x 1), power allocation (1 x B) and spatial coupling
+    (Lr x Lc), whose E nonzero blocks go through one batched transform.
     """
     if y.is_complex():
         raise NotImplementedError("complex codes are not ported")
@@ -145,7 +151,8 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
             z_new = y
         else:
             zb, coef = per_row_block(z, gamma / phi)
-            z_new = y - design.ab(beta, fwht_kernel) + (coef * zb).reshape(B, n)
+            z_new = (y - design.ab(beta, fwht_kernel, fwht_mode)
+                     + (coef * zb).reshape(B, n))
         if decode.phi_est_method == 1:
             phi_new = awgn_var + gamma
         else:
@@ -153,7 +160,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 
         tau = (L / Mr) / ((1.0 / phi_new) @ W)                      # (B, Lc)
         zb, ph = per_row_block(z_new, phi_new)
-        azo = design.az((zb / ph).reshape(B, n), fwht_kernel)
+        azo = design.az((zb / ph).reshape(B, n), fwht_kernel, fwht_mode)
         if fused:
             tau_sec = tau.repeat_interleave(sec_per_col, dim=1)        # (B, L)
             s_new, beta_new, sec_en = fused_denoise_update(beta, azo, tau_sec, M)
@@ -194,19 +201,22 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 
 def decode_batch(y: torch.Tensor, design: SparcDesign, params: SparcParams,
                  decode: DecodeParams, awgn_var: float,
-                 fused_denoiser: bool | None = None, fwht_kernel: bool = True):
+                 fused_denoiser: bool | None = None, fwht_kernel: bool = True,
+                 fwht_mode: str = "ms"):
     """The batched decode `bench.py` times: AMP on y (B, n), returning the
     hard decisions (B, L*M) and the iterations run (B,)."""
     res = amp_decode(y, design, params, decode, awgn_var,
-                     fused_denoiser=fused_denoiser, fwht_kernel=fwht_kernel)
+                     fused_denoiser=fused_denoiser, fwht_kernel=fwht_kernel,
+                     fwht_mode=fwht_mode)
     return res.beta, res.t_final
 
 
 def sparc_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
                  decode: DecodeParams, awgn_var: float,
-                 beta0: Optional[torch.Tensor] = None):
+                 beta0: Optional[torch.Tensor] = None, fwht_mode: str = "ms"):
     """AMP + hard decision + bits + the frame-error flag mean(psi) >= 1e-3."""
-    res = amp_decode(y, design, params, decode, awgn_var, beta0)
+    res = amp_decode(y, design, params, decode, awgn_var, beta0,
+                     fwht_mode=fwht_mode)
     expect_err = res.psi.mean(-1) >= 0.001
     bits_out = bitops.msg_vector_to_bits(res.beta, params.M, params.K)
     return bits_out, res, expect_err
@@ -217,7 +227,8 @@ def sparc_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 # --------------------------------------------------------------------------
 
 def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
-              seed, engine: str = "srht", device="cpu") -> dict:
+              seed, engine: str = "srht", device="cpu",
+              fwht_mode: str = "ms") -> dict:
     """One trial end to end: bits -> beta0 -> x -> AWGN -> AMP -> metrics.
 
     Returns ber, cer, t_final, nmse, detect, ser, num_of_sec_errs and
@@ -229,10 +240,11 @@ def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
         rngmod.root_generator(rngmod.derive(seed, rngmod.BITS), device),
         params.bit_len)
     beta0 = bitops.bits_to_msg_vector(bits_in, params.M, params.K)
-    y = awgn_channel(design.ab(beta0), awgn_var,
+    y = awgn_channel(design.ab(beta0, fwht_mode=fwht_mode), awgn_var,
                      rngmod.root_generator(rngmod.derive(seed, rngmod.CHANNEL),
                                            device))
-    res = amp_decode(y, design, params, decode, awgn_var, beta0, W)
+    res = amp_decode(y, design, params, decode, awgn_var, beta0, W,
+                     fwht_mode=fwht_mode)
     expect_err = res.psi.mean() >= 0.001
     bits_out = bitops.msg_vector_to_bits(res.beta, params.M, params.K)
 

@@ -17,6 +17,14 @@ without signs. On a CPU tensor the same calls run the plain Kronecker
 chain of `ops/wht.py`. `fwht_kernel=False` takes the plain chain on any
 device; it is the reference the kernel path is measured against.
 
+`fwht_mode` picks the transform, as the JAX package's `set_fwht_backend`
+mode does: "ms" (the default) is K1, float32 throughout; "2mm" is K2
+(`ops/wht_cuda.fwht_signed_2mm`), the two-sided H_a . X . H_b form with
+bf16 operands, whose plain version rounds where the kernel does. "2mm"
+takes K2 only where the JAX package routes its Pallas kernel
+(`wht_pallas.use_pallas_srht`): a full offset-0 window of width 2^14 to
+2^20. Every other transform stays float32 (K1), as it does there.
+
 Products take leading batch dimensions: `ab` maps (..., L*M) to (..., n)
 and `az` maps (..., n) to (..., L*M), with one transform call per product
 for the whole batch.
@@ -31,8 +39,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .wht_cuda import fwht_signed, fwht_signed_ref
+from .wht_cuda import (fwht_signed, fwht_signed_2mm, fwht_signed_2mm_ref,
+                       fwht_signed_ref)
 from ..config import SparcParams, create_base_matrix
+
+FWHT_MODES = ("ms", "2mm")
+# log2 widths at which "2mm" takes K2: the JAX package's Pallas bounds
+# (wht_pallas._MIN_LOG_W, _MAX_LOG_W)
+K2_SRHT_LOG_W = (14, 20)
+
+
+def fwht_transform(fwht_mode: str = "ms", fwht_kernel: bool = True):
+    """The signed-FWHT function srht_apply calls: K1 ("ms") or K2 ("2mm"),
+    or their plain versions when fwht_kernel is False."""
+    if fwht_mode == "ms":
+        return fwht_signed if fwht_kernel else fwht_signed_ref
+    if fwht_mode == "2mm":
+        return fwht_signed_2mm if fwht_kernel else fwht_signed_2mm_ref
+    raise ValueError(f"fwht_mode must be one of {FWHT_MODES}, got {fwht_mode!r}")
 
 
 def _next_pow2_at_least(x: int) -> int:
@@ -84,7 +108,7 @@ def generate_block_randomness(W: np.ndarray, Mr: int, Mc: int, w: int,
 def srht_apply(vals: torch.Tensor, idx: torch.Tensor, signs: torch.Tensor,
                w: int, in_dim: int, out_dim: int, idx_side_is_input: bool,
                offset: int = 1, scale: torch.Tensor | None = None,
-               fwht_kernel: bool = True) -> torch.Tensor:
+               fwht_kernel: bool = True, fwht_mode: str = "ms") -> torch.Tensor:
     """Per-block SRHT product, (..., E, in_dim) -> (..., E, out_dim).
 
     idx_side_is_input: the random index set addresses the input (scatter in)
@@ -92,7 +116,11 @@ def srht_apply(vals: torch.Tensor, idx: torch.Tensor, signs: torch.Tensor,
     [offset, offset + dim). scale: optional (E,) per-block multipliers,
     applied on the small (index) side, where they cost O(small).
     """
-    transform = fwht_signed if fwht_kernel else fwht_signed_ref
+    transform = fwht_transform(fwht_mode, fwht_kernel)
+    window = out_dim if idx_side_is_input else in_dim
+    if not (offset == 0 and window == w
+            and K2_SRHT_LOG_W[0] <= w.bit_length() - 1 <= K2_SRHT_LOG_W[1]):
+        transform = fwht_transform("ms", fwht_kernel)
     E = idx.shape[0]
     batch = vals.shape[:-2]
     x = vals.reshape(-1, E, in_dim)
@@ -201,18 +229,22 @@ class SparcDesign:
                          device)
 
     # -- products -----------------------------------------------------------
-    def _fwd_blocks(self, vals: torch.Tensor, fwht_kernel: bool = True):
+    def _fwd_blocks(self, vals: torch.Tensor, fwht_kernel: bool = True,
+                    fwht_mode: str = "ms"):
         """(..., E, Mc) column-block values -> (..., E, Mr) row-block parts."""
         return srht_apply(vals, self.idx, self.signs, self.w, self.Mc, self.Mr,
                           idx_side_is_input=self.tall, offset=self.offset,
-                          scale=self.scale, fwht_kernel=fwht_kernel)
+                          scale=self.scale, fwht_kernel=fwht_kernel,
+                          fwht_mode=fwht_mode)
 
-    def _adj_blocks(self, vals: torch.Tensor, fwht_kernel: bool = True):
+    def _adj_blocks(self, vals: torch.Tensor, fwht_kernel: bool = True,
+                    fwht_mode: str = "ms"):
         """(..., E, Mr) row-block values -> (..., E, Mc) column-block parts
         (H symmetric: the adjoint swaps which side is scatter/gather)."""
         return srht_apply(vals, self.idx, self.signs, self.w, self.Mr, self.Mc,
                           idx_side_is_input=not self.tall, offset=self.offset,
-                          scale=self.scale, fwht_kernel=fwht_kernel)
+                          scale=self.scale, fwht_kernel=fwht_kernel,
+                          fwht_mode=fwht_mode)
 
     @staticmethod
     def _segment_sum(parts: torch.Tensor, seg: tuple, seg_t: torch.Tensor,
@@ -229,19 +261,21 @@ class SparcDesign:
         """The (B, E, d) block inputs of (B, num, d) blocks."""
         return x if seg == tuple(range(num)) else x.index_select(1, seg_t)
 
-    def ab(self, beta: torch.Tensor, fwht_kernel: bool = True) -> torch.Tensor:
+    def ab(self, beta: torch.Tensor, fwht_kernel: bool = True,
+           fwht_mode: str = "ms") -> torch.Tensor:
         """A @ beta. beta: (..., L*M) -> (..., n)."""
         xb = beta.reshape(-1, self.Lc, self.Mc)
         parts = self._fwd_blocks(self._select(xb, self.cols, self._cols_t,
-                                              self.Lc), fwht_kernel)
+                                              self.Lc), fwht_kernel, fwht_mode)
         out = self._segment_sum(parts, self.rows, self._rows_t, self.Lr)
         return out.reshape(beta.shape[:-1] + (self.n,))
 
-    def az(self, z: torch.Tensor, fwht_kernel: bool = True) -> torch.Tensor:
+    def az(self, z: torch.Tensor, fwht_kernel: bool = True,
+           fwht_mode: str = "ms") -> torch.Tensor:
         """A.T @ z. z: (..., n) -> (..., L*M)."""
         zb = z.reshape(-1, self.Lr, self.Mr)
         parts = self._adj_blocks(self._select(zb, self.rows, self._rows_t,
-                                              self.Lr), fwht_kernel)
+                                              self.Lr), fwht_kernel, fwht_mode)
         out = self._segment_sum(parts, self.cols, self._cols_t, self.Lc)
         return out.reshape(z.shape[:-1] + (self.LM,))
 
@@ -250,3 +284,16 @@ class SparcDesign:
         """Materialize A as a dense (n, L*M) numpy array. Tests only."""
         eye = torch.eye(self.LM, dtype=torch.float32, device=self.device)
         return self.ab(eye).T.cpu().numpy()
+
+
+def stack_designs(params: SparcParams, awgn_var: float, seed, count: int,
+                  engine: str = "srht", device="cpu"):
+    """`count` independent designs of `params`, design d seeded (seed, d):
+    the Monte-Carlo seed convention of the JAX package's `stack_designs`.
+    Returns the list of designs (the JAX package stacks their leaves for
+    vmap; the port decodes one design at a time). Only the 'srht' engine is
+    ported."""
+    if engine != "srht":
+        raise NotImplementedError(f"design engine {engine!r} is not ported")
+    return [SparcDesign.for_params(params, awgn_var, (seed, d), device)
+            for d in range(count)]

@@ -1,22 +1,30 @@
-"""Monte-Carlo LDPC waterfall campaign on one device.
+"""Monte Carlo on one device: the SPARC BER sweep and the LDPC waterfall
+campaign.
 
-Counterpart of the single-device campaign of
-`ldpc_sparc_tpu/parallel/montecarlo.py` (`_batch_counts`,
-`_ldpc_block_counts`, `ldpc_waterfall_campaign`): the adaptive-SNR
-protocol of the reference's sim() (ldpc_jossy/py/ldpc_awgn.py:60-123) over
-batches of random codewords, each batch encoded, sent as BPSK over AWGN and
-decoded by one batched BP call.
+Counterpart of the single-device parts of
+`ldpc_sparc_tpu/parallel/montecarlo.py`:
 
-Randomness: batch `ctr` (the index of its first codeword in the campaign's
-running counter) draws its bits and noise from one `torch.Generator` on the
-campaign's device, seeded from `rng.derive(seed, ctr)`. A batch is then a
-function of (seed, ctr) alone, which is what makes the pipelined loop, the
-serial loop and a resumed run give identical records. The streams are not
-the JAX package's (Threefry cannot be reproduced), so the two packages'
-counters agree statistically, not bit for bit.
+* `sparc_mc_counts` / `sparc_ber_sweep`: SPARC encode -> AWGN -> AMP ->
+  count trials (the performance_plots sweep). The JAX package's contract
+  holds: trial t draws its bits, then its noise, from one generator seeded
+  from `rng.derive(seed, t)`, and uses design (seed, t % n_designs) with
+  n_designs = min(8, n_trials). The counters are then a function of
+  (seed, trial index) alone, however the trials are grouped: the trials
+  of one design decode together, as one `decode_batch` call.
+* `ldpc_waterfall_campaign` (`_batch_counts`, `_ldpc_block_counts`): the
+  adaptive-SNR protocol of the reference's sim() (ldpc_jossy/py/
+  ldpc_awgn.py:60-123) over batches of random codewords, each batch
+  encoded, sent as BPSK over AWGN and decoded by one batched BP call.
+  Batch `ctr` (the index of its first codeword in the campaign's running
+  counter) draws its bits and noise from one `torch.Generator` seeded from
+  `rng.derive(seed, ctr)`, so a batch is a function of (seed, ctr) alone,
+  which is what makes the pipelined loop, the serial loop and a resumed
+  run give identical records.
 
-The JAX package's SPARC and concatenated Monte Carlo and its mesh fan-out
-are not ported yet (ROADMAP.md).
+The streams are not the JAX package's (Threefry cannot be reproduced), so
+the two packages' counters agree statistically, not bit for bit. The
+concatenated Monte Carlo and the mesh fan-out are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,10 +35,84 @@ import math
 import numpy as np
 import torch
 
-from ..config import LdpcParams
+from ..config import DecodeParams, LdpcParams, SparcParams
 from ..models.ldpc import LdpcCode, get_code
+from ..models.sparc import awgn_channel, decode_batch
 from ..ops.bp import bp_decode
+from ..ops.transforms import stack_designs
+from ..utils import bits as bitops
 from ..utils import rng as rngmod
+
+
+# --------------------------------------------------------------------------
+# SPARC Monte Carlo
+# --------------------------------------------------------------------------
+
+def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
+                    seed, n_trials: int, n_designs: int | None = None,
+                    engine: str = "srht", fwht_mode: str = "ms",
+                    device="cpu") -> dict:
+    """Run n_trials independent SPARC encode -> AWGN -> AMP -> count trials.
+
+    Trial t: bits then noise from `root_generator(derive(seed, t))`, design
+    (seed, t % n_designs). The trials of one design decode together, as one
+    `decode_batch` call.
+
+    Returns the counters bit_errs, bits, sec_errs, sections, frame_errs,
+    frames, iters.
+    """
+    if params.modulated:
+        raise NotImplementedError("PSK-modulated SPARCs are not ported")
+    if params.is_complex:
+        raise NotImplementedError("complex SPARCs are not ported")
+    device = torch.device(device)
+    if n_designs is None:
+        n_designs = min(8, n_trials)
+    designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
+    M, L = params.M, params.L
+    totals = torch.zeros(4, dtype=torch.int64, device=device)
+    for d, design in enumerate(designs):
+        gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
+                for t in range(d, n_trials, n_designs)]
+        if not gens:
+            continue
+        bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
+        beta0 = bitops.bits_to_msg_vector(bits, M)
+        x = design.ab(beta0, fwht_mode=fwht_mode)
+        y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
+        beta, t_final = decode_batch(y, design, params, decode, awgn_var,
+                                     fwht_mode=fwht_mode)
+        bit_errs = (bitops.msg_vector_to_bits(beta, M) != bits).sum(-1)
+        sec_errs = (beta != beta0).reshape(-1, L, M).any(-1).sum(-1)
+        totals += torch.stack([bit_errs.sum(), sec_errs.sum(),
+                               (bit_errs > 0).sum(), t_final.sum()])
+    be, se, fe, it = totals.tolist()
+    return {"bit_errs": be, "bits": n_trials * params.bit_len,
+            "sec_errs": se, "sections": n_trials * L,
+            "frame_errs": fe, "frames": n_trials, "iters": it}
+
+
+def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
+                    n_trials: int, engine: str = "srht", fwht_mode: str = "ms",
+                    device="cpu") -> list[dict]:
+    """BER / SER / FER at each noise level (the performance_plots sweep);
+    point i is seeded (seed, i)."""
+    rows = []
+    for i, v in enumerate(np.atleast_1d(awgn_vars)):
+        c = sparc_mc_counts(params, decode, float(v), (seed, i), n_trials,
+                            engine=engine, fwht_mode=fwht_mode, device=device)
+        rows.append({"awgn_var": float(v),
+                     "ber": c["bit_errs"] / c["bits"],
+                     "ser": c["sec_errs"] / c["sections"],
+                     "fer": c["frame_errs"] / c["frames"],
+                     "avg_iters": c["iters"] / c["frames"],
+                     **c})
+    return rows
+
+
+# --------------------------------------------------------------------------
+# LDPC waterfall campaign
+# --------------------------------------------------------------------------
 
 
 def _batch_counts(code: LdpcCode, snr_db: float, gen: torch.Generator,

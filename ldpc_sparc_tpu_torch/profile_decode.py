@@ -1,13 +1,15 @@
 """Where the time of one batched decode goes on the card.
 
-    python -m ldpc_sparc_tpu_torch.profile_decode [--path amp|bp] [--batch 256] [--out FILE]
+    python -m ldpc_sparc_tpu_torch.profile_decode [--path amp|sc|bp] [--batch 256] [--out FILE]
 
-Builds the problem `bench.py` times for the path: for `amp` (the default)
-a plain SPARC at L=1024, M=512, R=1.0, P=15, awgn_var 1, t_max 25, seed 0;
-for `bp` 802.11n r=1/2 z=27 codewords at sigma^2 = 10^-0.2, decoded by
+Builds the problem of the path: for `amp` (the default) `bench.py`'s plain
+SPARC at L=1024, M=512, R=1.0, P=15, awgn_var 1, t_max 25, seed 0; for
+`sc` the spatially coupled SPARC of `chip_smoke.py` phase 10 (L=2048,
+M=512, omega=6, Lambda=32, R=1.5, P=15, awgn_var 1, t_max 40, seed 0); for
+`bp` 802.11n r=1/2 z=27 codewords at sigma^2 = 10^-0.2, decoded by
 sumprod2 for at most 50 iterations. It decodes once to warm up, then traces
-one decode of the kernel path and one of the plain path with
-`torch.profiler`.
+one decode of each kernel path (for `sc`: K1+K3 and K2+K3) and one of the
+plain path with `torch.profiler`.
 For each it prints the wall time (host clock around a synchronised decode),
 the device time summed over kernels, the device's idle share of the wall
 time, and the kernels by device time. With --out it also writes the
@@ -59,7 +61,7 @@ def _trace(fn) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("amp", "bp"), default="amp")
+    ap.add_argument("--path", choices=("amp", "sc", "bp"), default="amp")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the numbers as JSON here")
@@ -72,15 +74,22 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"card": torch.cuda.get_device_name(0), "path": args.path,
            "batch": args.batch}
-    if args.path == "amp":
+    if args.path in ("amp", "sc"):
         params, decode, awgn_var = SparcParams(P=15.0, R=1.0, L=1024, M=512), \
             DecodeParams(t_max=25), 1.0
+        if args.path == "sc":
+            params = SparcParams(P=15.0, R=1.5, L=2048, M=512, spatially_coupled=True,
+                                 omega=6, Lambda=32)
+            decode = DecodeParams(t_max=40)
         design = SparcDesign.for_params(params, awgn_var, seed=0, device=dev)
         bits = bitops.random_bits(gen, args.batch * params.bit_len).reshape(
             args.batch, params.bit_len)
         y = awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)),
                          awgn_var, gen)
         paths = {"kernel": lambda: decode_batch(y, design, params, decode, awgn_var),
+                 **({"kernel-2mm": lambda: decode_batch(
+                     y, design, params, decode, awgn_var, fwht_mode="2mm")}
+                    if args.path == "sc" else {}),
                  "plain": lambda: decode_batch(y, design, params, decode, awgn_var,
                                                fused_denoiser=False,
                                                fwht_kernel=False)}

@@ -6,7 +6,10 @@ on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: the signed FWHT is float32 in both versions, so the kernel
-stays within 1e-5 * max|ref| (log2(w) stages of float32 rounding); the
+stays within 1e-5 * max|ref| (log2(w) stages of float32 rounding); K2 (the
+two-sided form, bf16 operands) is bit-exact on rows with entries in
+{-1, 0, 1} up to b = 256 and within chip_smoke.py's relative Frobenius
+bound of 1e-3 of its plain version on Gaussian rows; the
 denoiser tail uses tests/test_denoiser_pallas.py's tolerances (s to rtol
 1e-6, the softmax and energies to rtol 1e-5, since exp and the sums
 reassociate). The BP decode must give the plain decode's iteration counts
@@ -236,3 +239,88 @@ def test_bp_paths_on_the_card():
     piped = ldpc_waterfall_campaign(params, pipelined=True, **kw)
     serial = ldpc_waterfall_campaign(params, pipelined=False, **kw)
     assert piped == serial and len(piped) == 3
+
+
+# ---- K2: the signed FWHT as two tensor-core products -------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_w", [12, 15, 16])
+@pytest.mark.parametrize("mode", ["pre", "post", "none"])
+def test_fwht_signed_2mm_exact_on_ternary_rows(log_w, mode):
+    """Every intermediate is an integer of magnitude <= 256, which bf16
+    holds: K2 equals the exact float32 transform bit for bit."""
+    dev = _card()
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(log_w)
+    x = torch.randint(-1, 2, (6, w), generator=gen, device=dev).float()
+    signs = None if mode == "none" else (
+        torch.randint(0, 2, (3, w), generator=gen, device=dev) * 2 - 1).float()
+    before = wht_cuda.LAUNCHES_2MM
+    got = wht_cuda.fwht_signed_2mm(x, signs, mode == "pre")
+    assert wht_cuda.LAUNCHES_2MM == before + 1
+    want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_w", [8, 11, 15, 17, 19, 20])
+@pytest.mark.parametrize("pre", [True, False])
+def test_fwht_signed_2mm_matches_plain(log_w, pre):
+    dev = _card()
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(log_w)
+    x = torch.randn(4, w, generator=gen, device=dev)
+    signs = (torch.randint(0, 2, (2, w), generator=gen, device=dev) * 2 - 1).float()
+    got = wht_cuda.fwht_signed_2mm(x, signs, pre)
+    want = wht_cuda.fwht_signed_2mm_ref(x, signs, pre)
+    torch.cuda.synchronize()
+    assert float((got - want).norm()) <= 1e-3 * float(want.norm())
+
+
+@pytest.mark.cuda
+def test_fwht_signed_2mm_rejects_bad_arguments():
+    dev = _card()
+    x = torch.zeros(2, 1 << 10, device=dev)
+    with pytest.raises(NotImplementedError):
+        wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32")
+    with pytest.raises(ValueError):
+        wht_cuda.fwht_signed_2mm(torch.zeros(2, 128, device=dev), None, True)
+    with pytest.raises(ValueError):
+        wht_cuda.fwht_signed_2mm(x, torch.ones(3, 1 << 10, device=dev), True)
+
+
+@pytest.mark.cuda
+def test_sc_decode_through_k2_launch_counts():
+    """An SC decode with fwht_mode="2mm" and a full offset-0 window of 2^14
+    launches K2 once per design product (2 (t_max - 1) - 1) and K3 once per
+    iteration, K1 never; it decodes."""
+    _check_sc_decode_launches(M=512, through_k2=True)
+
+
+@pytest.mark.cuda
+def test_2mm_keeps_k1_below_k2_widths():
+    """At a window of 2^10 "2mm" keeps the float32 K1, as the JAX package
+    keeps its float32 chain below 2^14."""
+    _check_sc_decode_launches(M=32, through_k2=False)
+
+
+def _check_sc_decode_launches(M, through_k2):
+    dev = _card()
+    params = SparcParams(P=15.0, R=1.0, L=256, M=M, spatially_coupled=True,
+                         omega=3, Lambda=8)
+    t_max = 12
+    design = SparcDesign.for_params(params, 1.0, 5, device=dev)
+    assert design.offset == 0 and design.w == 256 * M // 8
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bits = bitops.random_bits(gen, 4 * params.bit_len).reshape(4, -1)
+    beta0 = bitops.bits_to_msg_vector(bits, params.M)
+    y = sparc.awgn_channel(design.ab(beta0), 1.0, gen)
+    k1, k2, k3 = wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES
+    beta, _ = sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0,
+                                 fwht_mode="2mm")
+    products = 2 * (t_max - 1) - 1
+    assert wht_cuda.LAUNCHES - k1 == (0 if through_k2 else products)
+    assert wht_cuda.LAUNCHES_2MM - k2 == (products if through_k2 else 0)
+    assert denoiser_cuda.LAUNCHES - k3 == t_max - 1
+    assert torch.equal(beta, beta0)

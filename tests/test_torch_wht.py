@@ -17,6 +17,21 @@ from ldpc_sparc_tpu_torch.ops import wht as twht
 from ldpc_sparc_tpu_torch.ops import wht_cuda
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread per test process (the suite runs files in parallel);
+    float32 matmuls at full precision (no TF32)."""
+    n, prec = torch.get_num_threads(), torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.set_num_threads(n)
+    torch.set_float32_matmul_precision(prec)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 @pytest.fixture
 def f32_pallas():
     """The JAX kernel in float32 (its default operands are bf16)."""
@@ -121,3 +136,104 @@ def test_kernel_argument_checks_dtype_and_width():
         wht_cuda._check(torch.zeros(1, 1 << (wht_cuda.MAX_LOG_W + 1)), None)
     wht_cuda._check(torch.zeros(2, 16), torch.ones(2, 16))
 
+
+
+# ---- K2: the two-sided form H_a . X . H_b (wht_pallas._kernel) ---------------
+# Against the Pallas kernel in interpret mode on the same numpy rows: in
+# float32 within 1e-5 of the largest entry (both sum float32 products, in
+# another order); with bf16 operands within the relative Frobenius bound of
+# chip_smoke.py phase 9, 1e-3 (a T entry whose float32 sum lands near a
+# bf16 rounding boundary may round the other way in one package); on rows
+# with entries in {-1, 0, 1} bit-equal, since every T entry is then an
+# integer of magnitude <= b, which bf16 holds exactly.
+
+@pytest.fixture
+def pallas_dtype():
+    old = wht_pallas._FWHT_PALLAS_DTYPE
+    yield lambda dtype: wht_pallas.set_fwht_backend(dtype=dtype)
+    wht_pallas.set_fwht_backend(dtype=old)
+
+
+def _rows_2mm(w, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "ternary":
+        x = rng.integers(-1, 2, (4, w)).astype(np.float32)
+    else:
+        x = rng.normal(size=(4, w)).astype(np.float32)
+    signs = (rng.integers(0, 2, (2, w)) * 2 - 1).astype(np.float32)
+    return x, signs
+
+
+@pytest.mark.parametrize("w", [1 << 8, 1 << 10])
+@pytest.mark.parametrize("apply_pre", [True, False])
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("dtype,kind", [("float32", "gaussian"),
+                                        ("bfloat16", "gaussian"),
+                                        ("bfloat16", "ternary")])
+def test_fwht_signed_2mm_ref_matches_jax_kernel(pallas_dtype, w, apply_pre, signed,
+                                                dtype, kind):
+    pallas_dtype(dtype)
+    x, signs = _rows_2mm(w, kind, w + 2 * apply_pre + signed)
+    if not signed:
+        signs = np.ones_like(signs)
+    # the JAX kernel takes one sign row per row: row r uses sign row r % 2
+    want = np.asarray(wht_pallas._fwht_signed_2mm(
+        jnp.asarray(x), jnp.asarray(np.tile(signs, (2, 1))), w, apply_pre,
+        interpret=True))
+    got = wht_cuda.fwht_signed_2mm_ref(
+        torch.as_tensor(x), torch.as_tensor(signs) if signed else None, apply_pre,
+        mm_dtype=dtype).numpy()
+    if kind == "ternary":
+        np.testing.assert_array_equal(got, want)
+    elif dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
+
+
+def test_fwht_signed_2mm_ref_equals_the_exact_transform_on_ternary_rows():
+    """bf16 operands lose nothing on {-1, 0, 1} rows up to b = 256, so the
+    plain version equals the float32 transform bit for bit."""
+    x, signs = _rows_2mm(1 << 12, "ternary", 0)
+    x, signs = torch.as_tensor(x), torch.as_tensor(signs)
+    for sg, pre in ((signs, True), (signs, False), (None, True)):
+        assert torch.equal(wht_cuda.fwht_signed_2mm_ref(x, sg, pre),
+                           wht_cuda.fwht_signed_ref(x, sg, pre))
+
+
+def test_split_ab_matches_jax():
+    for log_w in range(0, 23):
+        assert wht_cuda.split_ab(1 << log_w) == wht_pallas._split_ab(1 << log_w)
+
+
+def test_cpu_tensors_never_launch_k2():
+    before = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM)
+    x = torch.ones(4, 1 << 9)
+    wht_cuda.fwht_signed_2mm(x, torch.ones(2, 1 << 9), True)
+    wht_cuda.fwht_signed_2mm(x, None, False, mm_dtype="float32")
+    assert (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM) == before
+
+
+@pytest.mark.parametrize("shape,signs_shape,mm_dtype", [
+    ((4, 128), None, "bfloat16"),              # below 2^8
+    ((1, 1 << 21), None, "bfloat16"),          # above 2^20
+    ((4, 384), None, "bfloat16"),              # not a power of two
+    ((256,), None, "bfloat16"),                # not 2-D
+    ((4, 256), None, "float16"),               # no such operand type
+])
+def test_k2_wrapper_rejects_bad_arguments(shape, signs_shape, mm_dtype):
+    """The wrapper refuses these on any device, before a launch."""
+    before = wht_cuda.LAUNCHES_2MM
+    with pytest.raises(ValueError):
+        wht_cuda.fwht_signed_2mm(torch.zeros(shape), None, True, mm_dtype)
+    assert wht_cuda.LAUNCHES_2MM == before
+
+
+def test_k2_kernel_argument_checks():
+    """The checks a CUDA tensor passes before K2 launches (`_check`)."""
+    with pytest.raises(ValueError):
+        wht_cuda._check(torch.zeros(4, 256, dtype=torch.float64), None)
+    with pytest.raises(ValueError):
+        wht_cuda._check(torch.zeros(3, 256), torch.ones(2, 256))
+    with pytest.raises(ValueError):
+        wht_cuda._check(torch.zeros(256, 4).t(), None)
