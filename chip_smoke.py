@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from `ldpc_sparc_tpu_torch/csrc/`,
-checks each against its plain PyTorch version on the card, and drives and
-times the paths `bench.py` times:
+checks each against its plain PyTorch version on the card (K1, the signed
+FWHT, at a width of each of its routes and through its two fused SRHT
+products), and drives and times the paths `bench.py` times:
 
   * slice A, the main path: a plain SPARC AMP decode at L=1024, M=512,
     R=1.0, P=15, awgn_var 1, t_max 25, 256 codewords (phases 2-5);
@@ -21,7 +22,10 @@ times the paths `bench.py` times:
     (phase 11).
 
 Each phase prints one line. The line before the last is a JSON
-summary of the kernels; the last line is
+summary of the kernels, each with its time, its plain version's, the least
+time the card could take for the same bytes and operations (`bound_ms`,
+against the peaks below) and, where one library call computes the same
+function, that call's; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, exits non-zero and prints no such line. Without a CUDA
 device it exits non-zero at once.
@@ -39,6 +43,15 @@ AWGN_VAR, T_MAX, BATCH, SEED = 1.0, 25, 256, 0
 # rounding give relative errors near 1e-6 of the largest entry, so
 # 1e-5 * max|ref| is a bound a wrong butterfly or sign cannot meet
 FWHT_REL_BOUND = 1e-5
+# K1's routes and the log2 widths phase 2 checks each at
+K1_ROUTE_WIDTHS = (("block", (10, 14, 15)), ("cluster", (16, 17, 18, 19)),
+                   ("two_pass", (20,)))
+# the index side of the two design products: (rows, E, k, log2 w)
+HEADLINE_SRHT = (BATCH, 1, 9216, 19)
+SC_SRHT = (64 * 192, 192, 332, 15)
+# the card's peaks, for each kernel's bound: NVIDIA's H100 SXM data sheet
+# (device memory, float32 outside the tensor cores, dense bf16)
+HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # kernel vs plain denoiser tail: tests/test_denoiser_pallas.py's tolerances
 # (s is bit-equal by construction; exp and the sums reassociate)
 DENOISE_TOL = {"s": (1e-6, 1e-6), "beta_new": (1e-5, 1e-7),
@@ -116,6 +129,89 @@ def cuda_ms(fn, reps=20, warmup=3):
 def fwht_err(got, want):
     """(max |got - want|, bound) for the FWHT comparisons."""
     return float((got - want).abs().max()), FWHT_REL_BOUND * float(want.abs().max())
+
+
+def least_ms(n_bytes, n_ops, ops_per_s=F32_FLOPS):
+    """{"bound_ms", "bound_by"}: the larger of bytes over the memory rate and
+    operations over their peak rate."""
+    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / ops_per_s
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def srht_inputs(shape, gen, dev):
+    """(idx int32 (E, k) sorted without repeats, signs (E, w)) for a fused
+    SRHT product check at shape = (rows, E, k, log2 w)."""
+    import torch
+    _, E, k, log_w = shape
+    w = 1 << log_w
+    idx = torch.stack([torch.randperm(w, generator=gen, device=dev)[:k].sort().values
+                       for _ in range(E)]).to(torch.int32)
+    signs = (torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
+    return idx, signs
+
+
+def check_fused_srht(shape, idx, signs, gen, dev):
+    """srht_scatter_fwht and srht_fwht_gather against their plain versions at
+    shape = (rows, E, k, log2 w): bit for bit on ternary rows, within
+    FWHT_REL_BOUND on Gaussian rows. Returns (text, largest Gaussian error)."""
+    import torch
+    from ldpc_sparc_tpu_torch.ops import wht_cuda
+    rows, E, k, log_w = shape
+    w = 1 << log_w
+    worst, parts = 0.0, []
+    for kind in ("ternary", "gaussian"):
+        if kind == "ternary":
+            vals = torch.randint(-1, 2, (rows, k), generator=gen, device=dev).float()
+            x = torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
+        else:
+            vals = torch.randn(rows, k, generator=gen, device=dev)
+            x = torch.randn(rows, w, generator=gen, device=dev)
+        for name, got, want in (
+                ("scatter", lambda: wht_cuda.srht_scatter_fwht(vals, idx, signs, w),
+                 lambda: wht_cuda.srht_scatter_fwht_ref(vals, idx, signs, w)),
+                ("gather", lambda: wht_cuda.srht_fwht_gather(x, signs, idx),
+                 lambda: wht_cuda.srht_fwht_gather_ref(x, signs, idx))):
+            g, r = got(), want()
+            torch.cuda.synchronize()
+            err, lim = fwht_err(g, r)
+            if kind == "ternary" and not torch.equal(g, r):
+                raise AssertionError(f"srht {name} at {shape} is not bit-equal to "
+                                     f"its plain version on ternary rows")
+            if not err <= lim:
+                raise AssertionError(f"srht {name} at {shape}: {err} > {lim}")
+            if kind == "gaussian":
+                worst = max(worst, err)
+                parts.append(f"{name} {err:.2e}")
+            del g, r
+    return (f"({rows} rows, idx ({E}, {k}), 2^{log_w}) ternary bit-equal, Gaussian "
+            + " ".join(parts)), worst
+
+
+def time_k1(shape, idx, signs, routes, gen, dev):
+    """Times of K1 at shape = (rows, E, k, log2 w): `fwht_signed` by each of
+    `routes` (pre, post), and the two fused products with their plain
+    versions. Returns {name: ms}."""
+    import torch
+    from ldpc_sparc_tpu_torch.ops import wht_cuda
+    rows, E, k, log_w = shape
+    w = 1 << log_w
+    x = torch.randn(rows, w, generator=gen, device=dev)
+    vals = torch.randn(rows, k, generator=gen, device=dev)
+    t = {}
+    for route in routes:
+        for pre in (True, False):
+            t[f"{route} {'pre' if pre else 'post'}"] = cuda_ms(
+                lambda: wht_cuda.fwht_signed(x, signs, pre, route=route))
+    t["scatter"] = cuda_ms(lambda: wht_cuda.srht_scatter_fwht(vals, idx, signs, w,
+                                                              validate=False))
+    t["gather"] = cuda_ms(lambda: wht_cuda.srht_fwht_gather(x, signs, idx,
+                                                            validate=False))
+    t["scatter plain"] = cuda_ms(
+        lambda: wht_cuda.srht_scatter_fwht_ref(vals, idx, signs, w), reps=5)
+    t["gather plain"] = cuda_ms(
+        lambda: wht_cuda.srht_fwht_gather_ref(x, signs, idx), reps=5)
+    return t
 
 
 def bp_inputs(code, snr_db, batch, seed, dev):
@@ -211,6 +307,21 @@ def slice_b(dev, card):
                                                      True, 0.7))
     k4_plain_ms = cuda_ms(lambda: bp_cuda.bp_decode_ref(llr, code.graph, BP_ITERS,
                                                         True, 0.7), reps=5)
+    # K4's bound from what this draw needs. A codeword that stops after `it`
+    # iterations runs min(it + 1, cap) check phases; a check of degree d
+    # takes 3 d - 5 Lxor evaluations (d - 2 forward prefixes, d - 1 backward
+    # suffixes, d - 2 extrinsic outputs), each counted as 14 float32
+    # operations (sign, two abs, min, a + b, a - b, two abs, two exp, two
+    # log1p, two adds); a variable phase takes 2 adds an edge. It reads the
+    # LLRs and writes the APPs and the iteration counts. The slowest
+    # codeword's dependent chain is its phases times the 2 d_max - 3 Lxors
+    # that follow one another in the largest check.
+    deg = (code.graph.chk_edges >= 0).sum(1)
+    phases = torch.clamp(res.iterations.long() + 1, max=BP_ITERS)
+    n_lxor = int(phases.sum()) * code.graph.z * int((3 * deg - 5).sum())
+    k4_ops = 14 * n_lxor + 2 * code.graph.E * code.graph.z * int(phases.sum())
+    k4_bound = least_ms(4 * (2 * BP_BATCH * code.N + BP_BATCH), k4_ops)
+    chain = int(phases.max()) * (2 * int(deg.max()) - 3)
     draws = []
     for s in BP_DRAW_SEEDS:
         _, llr_s = bp_inputs(code, BP_SNR_DB, BP_BATCH, s, dev)
@@ -228,7 +339,10 @@ def slice_b(dev, card):
              f"(max|d app| {err:.2e}) | ldpc_bp_ms_per_block kernel path "
              f"{ms_block[True]:.6f} (best decode {best[True] * 1e3:.4f} ms), plain "
              f"path {ms_block[False]:.6f} (best decode {best[False] * 1e3:.4f} ms) | "
-             f"bp_decode_kernel {k4_ms:.4f} ms (plain {k4_plain_ms:.4f} ms) | "
+             f"bp_decode_kernel {k4_ms:.4f} ms (plain {k4_plain_ms:.4f} ms; bound "
+             f"{k4_bound['bound_ms']:.6f} ms by {k4_bound['bound_by']}: {n_lxor} Lxor "
+             f"evaluations, {k4_ops} operations; the slowest codeword's chain is "
+             f"{chain} Lxors, {1e3 * k4_ms / chain:.3f} us each) | "
              f"bp_decode_kernel across draws: " + ", ".join(draws))
 
     # -- 8: the campaign segment (bench.py's campaign_blocks_per_s) --------------
@@ -279,7 +393,7 @@ def slice_b(dev, card):
             "source": "ldpc_sparc_tpu_torch/csrc/bp_decode.cu",
             "replaces": "ldpc_sparc_tpu/ops/bp_pallas.py:56",
             "launches": launches, "max_abs_err": k4_err,
-            "ms": k4_ms, "plain_ms": k4_plain_ms}
+            "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bound, "library_ms": None}
 
 
 def sc_inputs(design, params, batch, dev):
@@ -368,11 +482,36 @@ def slice_c(dev, card, errs):
                          f"{times[name, pre][1]:.4f} ms, K1 {times[name, pre][2]:.4f} "
                          f"ms, K1's plain {times[name, pre][3]:.4f} ms")
         del x
+    sc_shape = (SC_BATCH * design.E, design.E, design.idx.shape[1],
+                design.w.bit_length() - 1)
+    if sc_shape != SC_SRHT:
+        raise AssertionError(f"the SC design's index side is {sc_shape}")
+    k1_t = time_k1(SC_SRHT, design._idx32, design.signs, ("block", "two_pass"),
+                   gen, dev)
+    # the library's yardstick for K2: the pair of cuBLAS bf16 products
+    # ha @ (x @ hb) on the (a, b) view, operands already in bf16
+    lib_ms = {}
+    for name, rows, width in (("SC", SC_SRHT[0], design.w),
+                              ("headline", BATCH, 1 << 19)):
+        a, b = wht_cuda.split_ab(width)
+        ha = wht_cuda.hadamard_factor(a, torch.bfloat16, dev)
+        hb = wht_cuda.hadamard_factor(b, torch.bfloat16, dev)
+        xb = torch.randn(rows, a, b, generator=gen, device=dev).to(torch.bfloat16)
+        lib_ms[name] = cuda_ms(lambda: ha @ (xb @ hb))
+        del xb
+    a, b = wht_cuda.split_ab(design.w)
+    k2_bound = least_ms(4 * (2 * SC_SRHT[0] * design.w + design.E * design.w),
+                     2 * SC_SRHT[0] * (a * b * b + a * a * b), BF16_FLOPS)
     phase(9, f"fwht_signed_2mm on {card}: bit-exact on ternary rows at "
              f"{', '.join(exact)} (pre, post, no signs); Gaussian rows against "
              f"plain (relative Frobenius <= {K2_REL_BOUND:g}) and against float32 K1 "
              f"(max|d|/mean|K1| <= {K2_F32_BOUND:g}); K1 against its plain version "
-             f"(max|d| <= {FWHT_REL_BOUND:g} max|ref|): " + "; ".join(parts))
+             f"(max|d| <= {FWHT_REL_BOUND:g} max|ref|): " + "; ".join(parts)
+             + f" | K1 at {SC_SRHT} by route and its fused products, ms: "
+             + ", ".join(f"{k} {v:.4f}" for k, v in k1_t.items())
+             + f" | K2's bound at the SC shape {k2_bound['bound_ms']:.4f} ms by "
+             f"{k2_bound['bound_by']}; the pair of cuBLAS bf16 products ha @ (x @ hb) "
+             f"SC {lib_ms['SC']:.4f} ms, headline {lib_ms['headline']:.4f} ms")
 
     # -- 10: the SC decode through K1+K3, K2+K3 and the plain path --------------
     # K3 against its plain version at the SC decode's (batch, L, M) first
@@ -503,7 +642,8 @@ def slice_c(dev, card, errs):
             "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:103",
             "launches": counts["K2+K3"][1], "max_abs_err": k2_err,
             "ms": (times["SC", True][0] + times["SC", False][0]) / 2,
-            "plain_ms": (times["SC", True][1] + times["SC", False][1]) / 2}
+            "plain_ms": (times["SC", True][1] + times["SC", False][1]) / 2,
+            **k2_bound, "library_ms": lib_ms["SC"]}
 
 
 def main():
@@ -546,32 +686,61 @@ def main():
     errs = {"fwht_signed": 0.0, "fused_denoise_update": 0.0}
 
     # -- 2: K1 against its plain version ----------------------------------------
+    # every route at its widths, three sign modes: Gaussian rows within the
+    # bound; rows with entries in {-1, 0, 1} bit for bit (every partial sum is
+    # an integer below 2^24, exact in float32 in any order, so a wrong index
+    # or sign cannot hide behind a tolerance)
     E, B = 2, 4   # E*B = 8 rows; row r uses sign row r % E
     checked = []
-    for log_w in (10, 14, 19):
-        w = 1 << log_w
-        x = torch.randn(E * B, w, generator=gen, device=dev)
-        signs = (torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1
-                 ).float()
-        for sg, pre in ((signs, True), (signs, False), (None, False)):
-            got = wht_cuda.fwht_signed(x, sg, pre)
-            want = wht_cuda.fwht_signed_ref(x, sg, pre)
-            torch.cuda.synchronize()
-            err, bound = fwht_err(got, want)
-            if not err <= bound:
-                raise AssertionError(f"fwht_signed w=2^{log_w} pre={pre} "
-                                     f"signs={sg is not None}: {err} > {bound}")
+    for route, widths in K1_ROUTE_WIDTHS:
+        for log_w in widths:
+            w = 1 << log_w
+            xg = torch.randn(E * B, w, generator=gen, device=dev)
+            xt = torch.randint(-1, 2, (E * B, w), generator=gen, device=dev).float()
+            signs = (torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1
+                     ).float()
+            worst = 0.0
+            for sg, pre in ((signs, True), (signs, False), (None, False)):
+                what = (f"fwht_signed w=2^{log_w} route={route} pre={pre} "
+                        f"signs={sg is not None}")
+                got = wht_cuda.fwht_signed(xt, sg, pre, route=route)
+                want = wht_cuda.fwht_signed_ref(xt, sg, pre)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{what}: not bit-equal on ternary rows")
+                got = wht_cuda.fwht_signed(xg, sg, pre, route=route)
+                want = wht_cuda.fwht_signed_ref(xg, sg, pre)
+                torch.cuda.synchronize()
+                err, lim = fwht_err(got, want)
+                if not err <= lim:
+                    raise AssertionError(f"{what}: {err} > {lim}")
+                worst = max(worst, err)
             if log_w == 19:
-                errs["fwht_signed"] = max(errs["fwht_signed"], err)
-            checked.append(f"2^{log_w}/{'pre' if pre else 'post'}"
-                           f"{'' if sg is not None else '-nosign'} {err:.2e}")
+                errs["fwht_signed"] = max(errs["fwht_signed"], worst)
+            checked.append(f"2^{log_w} {route} {worst:.2e}")
+            del xg, xt, signs, got, want
+    fused = []
+    for shape in (HEADLINE_SRHT, SC_SRHT):
+        idx, signs = srht_inputs(shape, gen, dev)
+        text, err = check_fused_srht(shape, idx, signs, gen, dev)
+        fused.append(text)
+        if shape is HEADLINE_SRHT:
+            errs["fwht_signed"] = max(errs["fwht_signed"], err)
+        del idx, signs
     x = torch.randn(E * B, 1 << 19, generator=gen, device=dev)
     hh = wht_cuda.fwht_signed(wht_cuda.fwht_signed(x, None, False), None, False)
-    err, bound = fwht_err(hh, (1 << 19) * x)
-    if not err <= bound:
-        raise AssertionError(f"H(H(x)) != w x at 2^19: {err} > {bound}")
-    phase(2, f"fwht_signed vs plain (max|d| <= {FWHT_REL_BOUND:g} max|ref|): "
-             + ", ".join(checked) + f"; H(H(x)) = w x at 2^19 {err:.2e}")
+    err, lim = fwht_err(hh, (1 << 19) * x)
+    if not err <= lim:
+        raise AssertionError(f"H(H(x)) != w x at 2^19: {err} > {lim}")
+    del x, hh
+    clusters = ", ".join(f"{wht_cuda.active_clusters(lw)} of "
+                         f"{1 << (lw - wht_cuda.SEG_LOG_W)} blocks at 2^{lw}"
+                         for lw in K1_ROUTE_WIDTHS[1][1])
+    phase(2, f"fwht_signed vs plain, pre / post / no signs, ternary rows bit-equal "
+             f"and Gaussian rows max|d| <= {FWHT_REL_BOUND:g} max|ref|: "
+             + ", ".join(checked) + " | srht_scatter_fwht and srht_fwht_gather vs "
+             "plain: " + "; ".join(fused) + f" | H(H(x)) = w x at 2^19 {err:.2e} | "
+             f"clusters the card holds at once: {clusters}")
 
     # -- 3: K3 against its plain version ----------------------------------------
     beta = torch.softmax(3 * torch.randn(BATCH, L, M, generator=gen, device=dev),
@@ -656,15 +825,17 @@ def main():
         got = wht_cuda.fwht_signed(xw, signs, pre)
         want = wht_cuda.fwht_signed_ref(xw, signs, pre)
         torch.cuda.synchronize()
-        err, bound = fwht_err(got, want)
-        if not err <= bound:
+        err, lim = fwht_err(got, want)
+        if not err <= lim:
             raise AssertionError(f"fwht_signed at ({BATCH}, {w}) pre={pre}: "
-                                 f"{err} > {bound}")
+                                 f"{err} > {lim}")
         errs["fwht_signed"] = max(errs["fwht_signed"], err)
         del got, want
         k1[pre] = (cuda_ms(lambda: wht_cuda.fwht_signed(xw, signs, pre)),
                    cuda_ms(lambda: wht_cuda.fwht_signed_ref(xw, signs, pre), reps=5))
     del xw
+    k1_t = time_k1(HEADLINE_SRHT, design._idx32, signs, ("cluster", "two_pass"),
+                   gen, dev)
     beta = torch.softmax(3 * torch.randn(BATCH, L, M, generator=gen, device=dev),
                          -1).reshape(BATCH, L * M)
     azo = torch.randn(BATCH, L * M, generator=gen, device=dev)
@@ -683,26 +854,40 @@ def main():
              f"(best window {best['plain']:.4f} s) | fwht_signed ({BATCH}, {w}) pre "
              f"{k1[True][0]:.4f} ms (plain {k1[True][1]:.4f} ms), post "
              f"{k1[False][0]:.4f} ms (plain {k1[False][1]:.4f} ms), "
-             f"{4e3 * gb / k1[True][0]:.0f} GB/s at 2 passes | fused_denoise_update "
+             f"{2e3 * gb / k1[True][0]:.0f} GB/s of the 8w bytes a row | K1 by route "
+             f"and the fused products (k = {HEADLINE_SRHT[2]}), ms: "
+             + ", ".join(f"{k} {v:.4f}" for k, v in k1_t.items())
+             + f" | fused_denoise_update "
              f"({BATCH}, {L}, {M}) {k3[0]:.4f} ms (plain {k3[1]:.4f} ms), "
              f"{4e3 * gb / k3[0]:.0f} GB/s | device copy {copy_gbs:.0f} GB/s")
 
     k4 = slice_b(dev, card)
     k2 = slice_c(dev, card, errs)
+    # K1 as the main path launches it: the two fused products, averaged. Each
+    # reads or writes the (rows, w) side once, the (rows, k) side once, the
+    # (E, w) signs and the (E, k) int32 indices; w log2(w) adds a row.
+    rows, E, k, log_w = HEADLINE_SRHT
+    k1_bytes = 4 * (rows * (w + k) + E * (w + k))
     kernels = [
         {"name": "fwht_signed", "route": "cuda",
          "source": "ldpc_sparc_tpu_torch/csrc/fwht_signed.cu",
          "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:138",
          "launches": launches["fwht_signed"],
          "max_abs_err": errs["fwht_signed"],
-         "ms": (k1[True][0] + k1[False][0]) / 2,
-         "plain_ms": (k1[True][1] + k1[False][1]) / 2},
+         "ms": (k1_t["scatter"] + k1_t["gather"]) / 2,
+         "plain_ms": (k1_t["scatter plain"] + k1_t["gather plain"]) / 2,
+         **least_ms(k1_bytes, rows * w * log_w), "library_ms": None},
+        # K3 reads beta, azo and tau and writes s, beta_new and the section
+        # energies; about 8 float32 operations an entry (scale, add, max,
+        # subtract, exp, two sums, divide, square)
         {"name": "fused_denoise_update", "route": "cuda",
          "source": "ldpc_sparc_tpu_torch/csrc/denoise_update.cu",
          "replaces": "ldpc_sparc_tpu/ops/denoiser_pallas.py:67",
          "launches": launches["fused_denoise_update"],
          "max_abs_err": errs["fused_denoise_update"],
-         "ms": k3[0], "plain_ms": k3[1]},
+         "ms": k3[0], "plain_ms": k3[1],
+         **least_ms(4 * (4 * BATCH * L * M + 2 * BATCH * L), 8 * BATCH * L * M),
+         "library_ms": None},
     ]
     kernels.insert(1, k2)
     kernels.append(k4)

@@ -100,8 +100,16 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.ldpc_fwht_signed.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
-                                             ptr]
+                                             i32, ptr]
             lib.ldpc_fwht_signed.restype = i32
+            lib.ldpc_srht_scatter_fwht.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
+                                                   i32, i32, i32, i32, ptr]
+            lib.ldpc_srht_scatter_fwht.restype = i32
+            lib.ldpc_srht_fwht_gather.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
+                                                  i32, i32, i32, i32, ptr]
+            lib.ldpc_srht_fwht_gather.restype = i32
+            lib.ldpc_fwht_active_clusters.argtypes = [i32]
+            lib.ldpc_fwht_active_clusters.restype = i32
             lib.ldpc_fwht_2mm.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
                                           ptr]
             lib.ldpc_fwht_2mm.restype = i32

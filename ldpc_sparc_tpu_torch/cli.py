@@ -53,12 +53,15 @@ def sweep_config_key(args, params) -> str:
 
 
 def cmd_sparc_sweep(args):
-    import torch
     from .config import DecodeParams
+    from .device import resolve_device
     from .io.results import ResultsStore
     from .parallel.montecarlo import sparc_ber_sweep
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(f"sparc-sweep: {err}")
     params = sparc_params_from_args(args)
     decode = DecodeParams(t_max=args.t_max)
     snrs = np.linspace(args.snr_start, args.snr_stop, args.num_snrs)
@@ -90,7 +93,8 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", type=str, default="results")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when a card is present)")
+                   help="torch device (default: the CUDA device; an error when "
+                        "there is none; 'cpu' asks for the CPU)")
     p.add_argument("--P", type=float, default=15.0)
     p.add_argument("--R", type=float, default=1.3)
     p.add_argument("--L", type=int, default=1024)

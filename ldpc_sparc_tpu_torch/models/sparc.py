@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import SparcParams, DecodeParams, create_base_matrix
+from ..device import resolve_device
 from ..ops.transforms import SparcDesign
 from ..ops.denoiser import mmse_denoise, map_estimate
 from ..ops.denoiser_cuda import fused_eligible, fused_denoise_update
@@ -32,9 +33,10 @@ from ..utils.metrics import bit_error_rate, section_errors
 
 
 def design_for_params(params: SparcParams, awgn_var: float, seed,
-                      engine: str = "srht", device="cpu") -> SparcDesign:
-    """The seeded design of `params`. Only the 'srht' engine is ported; the
-    complex 'dft' engine is queued in ROADMAP.md."""
+                      engine: str = "srht", device=None) -> SparcDesign:
+    """The seeded design of `params`, on the card unless `device` says
+    otherwise. Only the 'srht' engine is ported; the complex 'dft' engine is
+    queued in ROADMAP.md."""
     if engine != "srht":
         raise NotImplementedError(f"design engine {engine!r} is not ported")
     return SparcDesign.for_params(params, awgn_var, seed, device)
@@ -46,9 +48,10 @@ def design_for_params(params: SparcParams, awgn_var: float, seed,
 
 def sparc_encode(params: SparcParams, awgn_var: float, seed,
                  gen: Optional[torch.Generator] = None, engine: str = "srht",
-                 device="cpu"):
+                 device=None):
     """Random bits -> message vector -> x = A @ beta0 through the seeded
     design. Returns (bits, beta0, x, design)."""
+    device = resolve_device(device)
     if gen is None:
         gen = rngmod.root_generator(rngmod.derive(seed, rngmod.BITS), device)
     bits = bitops.random_bits(gen, params.bit_len)
@@ -227,13 +230,14 @@ def sparc_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 # --------------------------------------------------------------------------
 
 def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
-              seed, engine: str = "srht", device="cpu",
+              seed, engine: str = "srht", device=None,
               fwht_mode: str = "ms") -> dict:
     """One trial end to end: bits -> beta0 -> x -> AWGN -> AMP -> metrics.
 
     Returns ber, cer, t_final, nmse, detect, ser, num_of_sec_errs and
     loc_of_sec_errs (the indices of the sections decoded wrong).
     """
+    device = resolve_device(device)
     design = design_for_params(params, awgn_var, seed, engine, device)
     W = create_base_matrix(params, awgn_var)
     bits_in = bitops.random_bits(

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import SparcParams, create_base_matrix
+from ..device import resolve_device
 
 
 def se_expectation(tau: torch.Tensor, K: int, u: torch.Tensor) -> torch.Tensor:
@@ -45,12 +46,13 @@ def se_expectation(tau: torch.Tensor, K: int, u: torch.Tensor) -> torch.Tensor:
 
 def sparc_se(awgn_var: float, params: SparcParams, t_max: int,
              mc_samples: int, seed: int = 0,
-             device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+             device=None) -> Tuple[np.ndarray, np.ndarray]:
     """State evolution for SPARCs. Returns (psi, tau): psi the (t_max, Lc)
     NMSE trajectory, tau the final (Lc,) effective noise variances."""
     if params.K != 1:
         raise NotImplementedError("state evolution for PSK-modulated codes "
                                   "(K >= 2) is not ported")
+    device = resolve_device(device)
     W = torch.as_tensor(create_base_matrix(params, awgn_var), dtype=torch.float32,
                         device=device)
     Lr, Lc = W.shape

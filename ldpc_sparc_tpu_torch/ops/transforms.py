@@ -10,12 +10,16 @@ package's that makes the same `rng` calls in the same order, so the two
 packages construct bit-identical designs from one seed.
 
 FWHT routing in `srht_apply`: on a CUDA tensor every width-w transform goes
-through the hand-written kernel (`ops/wht_cuda.fwht_signed`). An offset-0
-design (the window is the whole width) fuses its sign diagonal into the
-kernel; an offset-1 design slices or pads the window around a kernel call
-without signs. On a CPU tensor the same calls run the plain Kronecker
-chain of `ops/wht.py`. `fwht_kernel=False` takes the plain chain on any
-device; it is the reference the kernel path is measured against.
+through the hand-written kernel K1 (`ops/wht_cuda`). An offset-0 design
+(the window is the whole width) takes K1's two fused products,
+`srht_scatter_fwht` and `srht_fwht_gather`: the sign diagonal, the scatter
+of the index side into the transform's input and the gather from its
+output all happen on chip, so the index side never exists at full width
+in device memory. An offset-1 design slices or pads the window around a
+`fwht_signed` call without signs. On a CPU tensor the same calls run the
+plain versions (zero fill, `scatter_`, the Kronecker chain of
+`ops/wht.py`, `gather`). `fwht_kernel=False` takes the plain versions on
+any device; they are the reference the kernel path is measured against.
 
 `fwht_mode` picks the transform, as the JAX package's `set_fwht_backend`
 mode does: "ms" (the default) is K1, float32 throughout; "2mm" is K2
@@ -40,8 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from .wht_cuda import (fwht_signed, fwht_signed_2mm, fwht_signed_2mm_ref,
-                       fwht_signed_ref)
+                       fwht_signed_ref, srht_fwht_gather, srht_fwht_gather_ref,
+                       srht_scatter_fwht, srht_scatter_fwht_ref)
 from ..config import SparcParams, create_base_matrix
+from ..device import resolve_device
 
 FWHT_MODES = ("ms", "2mm")
 # log2 widths at which "2mm" takes K2: the JAX package's Pallas bounds
@@ -108,13 +114,16 @@ def generate_block_randomness(W: np.ndarray, Mr: int, Mc: int, w: int,
 def srht_apply(vals: torch.Tensor, idx: torch.Tensor, signs: torch.Tensor,
                w: int, in_dim: int, out_dim: int, idx_side_is_input: bool,
                offset: int = 1, scale: torch.Tensor | None = None,
-               fwht_kernel: bool = True, fwht_mode: str = "ms") -> torch.Tensor:
+               fwht_kernel: bool = True, fwht_mode: str = "ms",
+               idx32: torch.Tensor | None = None) -> torch.Tensor:
     """Per-block SRHT product, (..., E, in_dim) -> (..., E, out_dim).
 
     idx_side_is_input: the random index set addresses the input (scatter in)
     or the output (gather out); the other side is the signed window
     [offset, offset + dim). scale: optional (E,) per-block multipliers,
-    applied on the small (index) side, where they cost O(small).
+    applied on the small (index) side, where they cost O(small). idx32:
+    an int32 copy of idx for K1's fused products, which otherwise make one
+    per call on a card.
     """
     transform = fwht_transform(fwht_mode, fwht_kernel)
     window = out_dim if idx_side_is_input else in_dim
@@ -128,21 +137,30 @@ def srht_apply(vals: torch.Tensor, idx: torch.Tensor, signs: torch.Tensor,
     if idx_side_is_input:
         if scale is not None:
             x = x * scale[:, None]
-        X = torch.zeros(B, E, w, dtype=x.dtype, device=x.device)
-        X.scatter_(-1, idx.expand(B, E, -1), x)
-        X = X.reshape(B * E, w)
+        x = x.reshape(B * E, in_dim)
         if offset == 0 and out_dim == w:
-            out = transform(X, signs, apply_pre=False).reshape(B, E, w)
+            if transform is fwht_signed:
+                out = srht_scatter_fwht(x, idx if idx32 is None else idx32, signs,
+                                        w, validate=False)
+            else:
+                out = srht_scatter_fwht_ref(x, idx, signs, w, transform=transform)
+            out = out.reshape(B, E, w)
         else:
-            Y = transform(X, None, apply_pre=False).reshape(B, E, w)
-            out = Y[..., offset:out_dim + offset] * signs
+            Y = srht_scatter_fwht_ref(x, idx, None, w, transform=transform)
+            out = Y.reshape(B, E, w)[..., offset:out_dim + offset] * signs
     else:
         if offset == 0 and in_dim == w:
-            Y = transform(x.reshape(B * E, w), signs, apply_pre=True)
+            x = x.reshape(B * E, w)
+            if transform is fwht_signed:
+                out = srht_fwht_gather(x, signs, idx if idx32 is None else idx32,
+                                       validate=False)
+            else:
+                out = srht_fwht_gather_ref(x, signs, idx, transform=transform)
         else:
             X = F.pad(x * signs, (offset, w - offset - in_dim))
-            Y = transform(X.reshape(B * E, w), None, apply_pre=True)
-        out = Y.reshape(B, E, w).gather(-1, idx.expand(B, E, -1))
+            out = srht_fwht_gather_ref(X.reshape(B * E, w), None, idx,
+                                       transform=transform)
+        out = out.reshape(B, E, out_dim)
         if scale is not None:
             out = out * scale[:, None]
     return out.reshape(batch + (E, out_dim))
@@ -174,11 +192,17 @@ class SparcDesign:
     n: int
     LM: int
     offset: int = 1
+    _idx32: torch.Tensor = field(init=False, repr=False)
     _rows_t: torch.Tensor = field(init=False, repr=False)
     _cols_t: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self):
         dev = self.signs.device
+        if self.idx.numel() and not (int(self.idx.min()) >= 0
+                                     and int(self.idx.max()) < self.w):
+            raise ValueError(f"idx has entries outside [0, {self.w})")
+        # the kernels' copy of the index set, checked once here
+        self._idx32 = self.idx.to(torch.int32)
         self._rows_t = torch.tensor(self.rows, dtype=torch.int64, device=dev)
         self._cols_t = torch.tensor(self.cols, dtype=torch.int64, device=dev)
 
@@ -197,11 +221,13 @@ class SparcDesign:
     # -- construction -------------------------------------------------------
     @classmethod
     def build(cls, W: np.ndarray, L: int, M: int, n: int, seed,
-              device="cpu") -> "SparcDesign":
+              device=None) -> "SparcDesign":
         """The operator for base matrix W (2-D (Lr, Lc)): Mr = n/Lr rows and
         Mc = L*M/Lc columns per block; transform width w = the window side
         when it is a power of two (offset 0), else the next power of two
-        with room to skip the all-ones row/column 0 (offset 1)."""
+        with room to skip the all-ones row/column 0 (offset 1). It lies on
+        the card unless `device` says otherwise."""
+        device = resolve_device(device)
         W = np.atleast_2d(np.asarray(W, dtype=np.float64))
         Lr, Lc = W.shape
         assert n % Lr == 0, "Lr must divide n"
@@ -223,7 +249,7 @@ class SparcDesign:
 
     @classmethod
     def for_params(cls, params: SparcParams, awgn_var: float, seed,
-                   device="cpu") -> "SparcDesign":
+                   device=None) -> "SparcDesign":
         W = create_base_matrix(params, awgn_var)
         return cls.build(W, params.L, params.M, params.codeword_length(), seed,
                          device)
@@ -235,7 +261,7 @@ class SparcDesign:
         return srht_apply(vals, self.idx, self.signs, self.w, self.Mc, self.Mr,
                           idx_side_is_input=self.tall, offset=self.offset,
                           scale=self.scale, fwht_kernel=fwht_kernel,
-                          fwht_mode=fwht_mode)
+                          fwht_mode=fwht_mode, idx32=self._idx32)
 
     def _adj_blocks(self, vals: torch.Tensor, fwht_kernel: bool = True,
                     fwht_mode: str = "ms"):
@@ -244,7 +270,7 @@ class SparcDesign:
         return srht_apply(vals, self.idx, self.signs, self.w, self.Mr, self.Mc,
                           idx_side_is_input=not self.tall, offset=self.offset,
                           scale=self.scale, fwht_kernel=fwht_kernel,
-                          fwht_mode=fwht_mode)
+                          fwht_mode=fwht_mode, idx32=self._idx32)
 
     @staticmethod
     def _segment_sum(parts: torch.Tensor, seg: tuple, seg_t: torch.Tensor,
@@ -287,7 +313,7 @@ class SparcDesign:
 
 
 def stack_designs(params: SparcParams, awgn_var: float, seed, count: int,
-                  engine: str = "srht", device="cpu"):
+                  engine: str = "srht", device=None):
     """`count` independent designs of `params`, design d seeded (seed, d):
     the Monte-Carlo seed convention of the JAX package's `stack_designs`.
     Returns the list of designs (the JAX package stacks their leaves for

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import DecodeParams, LdpcParams, SparcParams
+from ..device import resolve_device
 from ..models.ldpc import LdpcCode, get_code
 from ..models.sparc import awgn_channel, decode_batch
 from ..ops.bp import bp_decode
@@ -51,7 +52,7 @@ from ..utils import rng as rngmod
 def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
                     seed, n_trials: int, n_designs: int | None = None,
                     engine: str = "srht", fwht_mode: str = "ms",
-                    device="cpu") -> dict:
+                    device=None) -> dict:
     """Run n_trials independent SPARC encode -> AWGN -> AMP -> count trials.
 
     Trial t: bits then noise from `root_generator(derive(seed, t))`, design
@@ -65,7 +66,7 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
         raise NotImplementedError("PSK-modulated SPARCs are not ported")
     if params.is_complex:
         raise NotImplementedError("complex SPARCs are not ported")
-    device = torch.device(device)
+    device = resolve_device(device)
     if n_designs is None:
         n_designs = min(8, n_trials)
     designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
@@ -94,9 +95,10 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
 
 def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
                     n_trials: int, engine: str = "srht", fwht_mode: str = "ms",
-                    device="cpu") -> list[dict]:
+                    device=None) -> list[dict]:
     """BER / SER / FER at each noise level (the performance_plots sweep);
     point i is seeded (seed, i)."""
+    device = resolve_device(device)
     rows = []
     for i, v in enumerate(np.atleast_1d(awgn_vars)):
         c = sparc_mc_counts(params, decode, float(v), (seed, i), n_trials,
@@ -141,12 +143,13 @@ def _batch_generator(seed, ctr: int, device) -> torch.Generator:
 
 
 def _ldpc_block_counts(code: LdpcCode, snr_db: float, seed, ctr: int,
-                       batch: int, max_iters: int, dectype: str, device="cpu",
+                       batch: int, max_iters: int, dectype: str, device=None,
                        bp_kernel: bool = True):
     """Decode one batch of random codewords at SNR (dB); returns
     (bit_errs, block_errs, iters) summed over trials ctr..ctr+batch, read
     back in one device-to-host copy."""
-    out = _batch_counts(code, snr_db, _batch_generator(seed, ctr, device),
+    out = _batch_counts(code, snr_db,
+                        _batch_generator(seed, ctr, resolve_device(device)),
                         batch, max_iters, dectype, bp_kernel)
     be, bl, it = out.tolist()
     return be, bl, it
@@ -160,7 +163,7 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
                             max_iters: int = 200, pipelined: bool = True,
                             on_point=None, bp_kernel: bool = True,
                             start_point: int = 0, start_snr=None,
-                            start_ctr: int = 0, device="cpu"):
+                            start_ctr: int = 0, device=None):
     """Adaptive-SNR BER waterfall measurement (sim(), ldpc_awgn.py:60-123).
 
     Per SNR point, decodes batches of `batch` random codewords on `device`
@@ -187,7 +190,7 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
     """
     code = get_code(ldpc_params.standard, ldpc_params.rate, ldpc_params.z,
                     ldpc_params.ptype)
-    device = torch.device(device)
+    device = resolve_device(device)
     R = ldpc_params.rate_float
     snr = 10.0 * np.log10(2.0 ** R - 1.0) + c_awgn_offset
     if start_snr is not None:

@@ -36,7 +36,7 @@ def _one_torch_thread():
 
 
 TINY = dict(seed=0, n_measurements=4, min_errors=2, max_blocks=32, batch=8,
-            dectype="sumprod2", max_iters=10)
+            dectype="sumprod2", max_iters=10, device="cpu")
 
 
 @pytest.mark.parametrize("z,dectype", [(3, "sumprod2"), (6, "minsum")])
@@ -88,6 +88,7 @@ def test_block_error_rate_matches_jax():
     kw = dict(seed=3, n_measurements=1, min_errors=10 ** 9, max_blocks=4096,
               batch=256, dectype="sumprod2", max_iters=20, start_snr=1.5)
     (j,) = jcampaign(JLdpcParams(standard="802.16", rate="1/2", z=27), **kw)
+    kw["device"] = "cpu"
     (t,) = ldpc_waterfall_campaign(LdpcParams(standard="802.16", rate="1/2",
                                               z=27), **kw)
     assert j[5] == t[5] == 4096 and j[7] == t[7]

@@ -172,7 +172,7 @@ def test_design_shapes_cover_both_window_layouts():
 def test_stack_designs_matches_jax(name):
     kw, var = CODES[name]
     jproto, jleaves = jtr.stack_designs(JParams(**kw), var, 7, 3)
-    designs = ttr.stack_designs(TParams(**kw), var, 7, 3)
+    designs = ttr.stack_designs(TParams(**kw), var, 7, 3, device="cpu")
     assert len(designs) == 3
     for f, j in zip(("idx", "signs", "scale"), jleaves):
         t = torch.stack([getattr(d, f) for d in designs])

@@ -6,7 +6,9 @@ on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: the signed FWHT is float32 in both versions, so the kernel
-stays within 1e-5 * max|ref| (log2(w) stages of float32 rounding); K2 (the
+stays within 1e-5 * max|ref| (log2(w) stages of float32 rounding) on every
+route and through its two fused SRHT products, and is bit-equal on rows with
+entries in {-1, 0, 1}; K2 (the
 two-sided form, bf16 operands) is bit-exact on rows with entries in
 {-1, 0, 1} up to b = 256 and within chip_smoke.py's relative Frobenius
 bound of 1e-3 of its plain version on Gaussian rows; the
@@ -56,6 +58,133 @@ def test_fwht_signed_matches_plain(log_w, mode):
     want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+ROUTE_CASES = [(log_w, route) for route in wht_cuda.ROUTES
+               for log_w in range(wht_cuda.ROUTE_LOG_W[route][0],
+                                  wht_cuda.ROUTE_LOG_W[route][1] + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_w,route", ROUTE_CASES)
+@pytest.mark.parametrize("mode", ["pre", "post", "none"])
+def test_fwht_signed_every_route_matches_plain(log_w, route, mode):
+    """Every width of every route, with 1, 2 and 192 sign rows: Gaussian rows
+    within 1e-5 of the largest entry, rows with entries in {-1, 0, 1} bit
+    for bit (every partial sum is an integer below 2^24)."""
+    dev = _card()
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(100 * log_w + len(route))
+    for E in (1, 2, 192):
+        rows = E * (2 if E < 192 and log_w < 22 else 1)
+        signs = None if mode == "none" else (
+            torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
+        for kind in ("ternary", "gaussian"):
+            x = (torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
+                 if kind == "ternary" else
+                 torch.randn(rows, w, generator=gen, device=dev))
+            before = wht_cuda.LAUNCHES
+            got = wht_cuda.fwht_signed(x, signs, mode == "pre", route=route)
+            assert wht_cuda.LAUNCHES == before + 1
+            want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
+            torch.cuda.synchronize()
+            if kind == "ternary":
+                assert torch.equal(got, want), (E, kind)
+            else:
+                assert float((got - want).abs().max()) \
+                    <= 1e-5 * float(want.abs().max()), (E, kind)
+            del x, got, want
+
+
+@pytest.mark.cuda
+def test_fwht_signed_default_route_is_the_table():
+    """route=None gives what the table's route gives, bit for bit."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for log_w in (9, 15, 17, 18, 19, 20):
+        x = torch.randn(4, 1 << log_w, generator=gen, device=dev)
+        route = wht_cuda.fwht_route(log_w)[0]
+        assert torch.equal(wht_cuda.fwht_signed(x, None, False),
+                           wht_cuda.fwht_signed(x, None, False, route=route))
+    with pytest.raises(ValueError):
+        wht_cuda.fwht_signed(x, None, False, route="block")
+
+
+def _srht_case(rows, E, k, log_w, dev, seed, kind):
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.stack([torch.randperm(w, generator=gen, device=dev)[:k].sort().values
+                       for _ in range(E)])
+    signs = (torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
+    if kind == "ternary":
+        vals = torch.randint(-1, 2, (rows, k), generator=gen, device=dev).float()
+        x = torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
+    else:
+        vals = torch.randn(rows, k, generator=gen, device=dev)
+        x = torch.randn(rows, w, generator=gen, device=dev)
+    return idx, signs, vals, x
+
+
+# (rows, E, k, log2 w): the headline's and the SC decode's index sides, one
+# index and all of them at a width of each on-chip route, and a width the
+# table sends to two passes (composed in device memory around them)
+SRHT_CASES = [(256, 1, 9216, 19), (12288, 192, 332, 15),
+              (6, 3, 1, 5), (6, 3, 32, 5), (4, 2, 1, 13), (4, 2, 1 << 13, 13),
+              (4, 2, 1, 15), (4, 2, 1 << 15, 15), (4, 2, 1, 16),
+              (4, 2, 1 << 16, 16), (2, 1, 1, 19), (2, 1, 1 << 19, 19),
+              (4, 2, 700, 0), (4, 2, 1000, 18), (2, 1, 5000, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,E,k,log_w", SRHT_CASES)
+@pytest.mark.parametrize("signed", ["signs", "none"])
+def test_fused_srht_products_match_plain(rows, E, k, log_w, signed):
+    """srht_scatter_fwht and srht_fwht_gather against the zero fill, scatter_,
+    transform, gather composition: bit for bit on ternary rows, 1e-5 of the
+    largest entry on Gaussian rows; int32 and int64 indices; one K1 launch
+    each; both sign conventions."""
+    dev = _card()
+    k = min(k, 1 << log_w)
+    for kind in ("ternary", "gaussian"):
+        idx, signs, vals, x = _srht_case(rows, E, k, log_w, dev, log_w + k, kind)
+        sg = signs if signed == "signs" else None
+        for apply_pre in (False, True):
+            for ix in (idx, idx.to(torch.int32)):
+                before = wht_cuda.LAUNCHES
+                got_s = wht_cuda.srht_scatter_fwht(vals, ix, sg, 1 << log_w,
+                                                   apply_pre=apply_pre)
+                got_g = wht_cuda.srht_fwht_gather(x, sg, ix, apply_pre=apply_pre)
+                assert wht_cuda.LAUNCHES == before + 2
+            want_s = wht_cuda.srht_scatter_fwht_ref(vals, idx, sg, 1 << log_w,
+                                                    apply_pre)
+            want_g = wht_cuda.srht_fwht_gather_ref(x, sg, idx, apply_pre)
+            torch.cuda.synchronize()
+            for got, want in ((got_s, want_s), (got_g, want_g)):
+                assert got.shape == want.shape
+                if kind == "ternary":
+                    assert torch.equal(got, want), (kind, apply_pre)
+                else:
+                    assert float((got - want).abs().max()) \
+                        <= 1e-5 * float(want.abs().max()), (kind, apply_pre)
+            del got_s, got_g, want_s, want_g
+
+
+@pytest.mark.cuda
+def test_fused_srht_products_reject_bad_arguments():
+    dev = _card()
+    idx = torch.tensor([[0, 3, 5]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="outside"):
+        wht_cuda.srht_fwht_gather(torch.zeros(2, 8, device=dev), None,
+                                  torch.tensor([[0, 3, 8]], device=dev))
+    with pytest.raises(ValueError, match="lies on"):
+        wht_cuda.srht_scatter_fwht(torch.zeros(2, 3, device=dev), idx.cpu(), None, 8)
+    with pytest.raises(ValueError, match="two_pass"):
+        wht_cuda.srht_fwht_gather(torch.zeros(2, 1 << 10, device=dev), None, idx,
+                                  route="two_pass")
+    with pytest.raises(ValueError):
+        wht_cuda.srht_fwht_gather(torch.zeros(2, 8, device=dev), None, idx,
+                                  route="cluster")
+    assert wht_cuda.active_clusters(19) >= 1
 
 
 @pytest.mark.cuda

@@ -125,7 +125,7 @@ def test_sparc_sim_decodes_at_the_verify_point():
     """P=15, R=1.3, L=256, M=32, awgn_var=1: far below capacity, BER 0 (for
     this seed; the port's random streams are not JAX's)."""
     r = tsparc.sparc_sim(TParams(P=15.0, R=1.3, L=256, M=32),
-                         TDecode(t_max=25), awgn_var=1.0, seed=0)
+                         TDecode(t_max=25), awgn_var=1.0, seed=0, device="cpu")
     assert float(r["ber"]) == 0.0 and float(r["ser"]) == 0.0
     assert float(r["cer"]) == 0.0 and float(r["detect"]) == 1.0
     assert 1 < int(r["t_final"]) < 25
@@ -134,14 +134,15 @@ def test_sparc_sim_decodes_at_the_verify_point():
 
 def test_sparc_sim_above_capacity_fails_and_flags_it():
     r = tsparc.sparc_sim(TParams(P=15.0, R=2.5, L=64, M=32),
-                         TDecode(t_max=10), awgn_var=1.0, seed=0)
+                         TDecode(t_max=10), awgn_var=1.0, seed=0, device="cpu")
     assert float(r["ber"]) > 0.05 and float(r["detect"]) == 1.0
     assert r["loc_of_sec_errs"].size == int(r["num_of_sec_errs"]) > 0
 
 
 def test_encode_and_decode_round_trip():
     params = TParams(P=15.0, R=1.0, L=32, M=128)
-    bits, beta0, x, design = tsparc.sparc_encode(params, AWGN_VAR, seed=1)
+    bits, beta0, x, design = tsparc.sparc_encode(params, AWGN_VAR, seed=1,
+                                                     device="cpu")
     assert x.shape == (params.n,) and beta0.shape == (params.L * params.M,)
     assert abs(float((x ** 2).mean()) - params.P) < 0.25 * params.P
     y = tsparc.awgn_channel(x, AWGN_VAR, torch.Generator().manual_seed(2))
@@ -167,7 +168,7 @@ def test_port_imports_no_jax_and_builds_nothing():
         "from ldpc_sparc_tpu_torch import parity, _build\n"
         "from ldpc_sparc_tpu_torch.ops import wht_cuda, denoiser_cuda\n"
         "r = P.sparc_sim(P.SparcParams(P=15.0, R=1.0, L=16, M=32),\n"
-        "                P.DecodeParams(t_max=4), 1.0, seed=0)\n"
+        "                P.DecodeParams(t_max=4), 1.0, seed=0, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ldpc_sparc_tpu' or m.startswith('ldpc_sparc_tpu.')]\n"
         "assert not bad, bad\n"

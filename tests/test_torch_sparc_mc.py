@@ -59,7 +59,8 @@ def _bound(k1, k2, n):
 
 def test_counts_agree_with_jax_near_threshold():
     n = 256
-    got = tmc.sparc_mc_counts(SparcParams(**SC), DecodeParams(t_max=20), 2.0, 0, n)
+    got = tmc.sparc_mc_counts(SparcParams(**SC), DecodeParams(t_max=20), 2.0, 0, n,
+                              device="cpu")
     want = jmc(JParams(**SC), JDecode(t_max=20), 2.0, 0, n)
     assert set(got) == KEYS and {k: got[k] for k in ("bits", "sections", "frames")} \
         == {k: want[k] for k in ("bits", "sections", "frames")}
@@ -76,7 +77,7 @@ def test_counts_agree_with_jax_near_threshold():
 def test_counts_do_not_depend_on_batching(n_trials, n_designs):
     """The counters equal the sums over the trials each decoded alone."""
     params, decode, var, seed = SparcParams(**SC), DecodeParams(t_max=15), 1.8, 4
-    designs = stack_designs(params, var, seed, n_designs)
+    designs = stack_designs(params, var, seed, n_designs, device="cpu")
     want = dict.fromkeys(("bit_errs", "sec_errs", "frame_errs", "iters"), 0)
     for t in range(n_trials):
         design = designs[t % n_designs]
@@ -90,16 +91,18 @@ def test_counts_do_not_depend_on_batching(n_trials, n_designs):
         want["sec_errs"] += int((beta != beta0).reshape(params.L, -1).any(-1).sum())
         want["frame_errs"] += be > 0
         want["iters"] += int(t_final.sum())
-    got = tmc.sparc_mc_counts(params, decode, var, seed, n_trials, n_designs)
+    got = tmc.sparc_mc_counts(params, decode, var, seed, n_trials, n_designs,
+                              device="cpu")
     assert {k: got[k] for k in want} == want
     assert 0 < want["frame_errs"] or n_trials < 7     # errors are counted
 
 
 def test_counts_with_2mm_and_errors():
     params = SparcParams(**SC)
-    a = tmc.sparc_mc_counts(params, DecodeParams(t_max=15), 0.5, 1, 4)
+    a = tmc.sparc_mc_counts(params, DecodeParams(t_max=15), 0.5, 1, 4,
+                            device="cpu")
     b = tmc.sparc_mc_counts(params, DecodeParams(t_max=15), 0.5, 1, 4,
-                            fwht_mode="2mm")
+                            fwht_mode="2mm", device="cpu")
     # Mc = 256 < 2^14: "2mm" keeps the float32 transform, as the JAX package does
     assert a == b and a["bit_errs"] == 0 and a["frames"] == 4
     with pytest.raises(NotImplementedError):
@@ -112,7 +115,7 @@ def test_counts_with_2mm_and_errors():
 
 def test_ber_sweep_rows_are_well_formed():
     rows = tmc.sparc_ber_sweep(SparcParams(**SC), DecodeParams(t_max=15),
-                               [2.0, 0.5], 0, 6)
+                               [2.0, 0.5], 0, 6, device="cpu")
     assert [r["awgn_var"] for r in rows] == [2.0, 0.5]
     for r in rows:
         assert set(r) == KEYS | {"awgn_var", "ber", "ser", "fer", "avg_iters"}
@@ -221,3 +224,52 @@ def test_new_modules_import_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert (tmp_path / "sparc_sweep.jsonl").exists()
+
+
+# ---- the entry points run on the card unless asked for the CPU ----------------
+
+def _no_card_calls():
+    from ldpc_sparc_tpu_torch import (LdpcParams, ldpc_waterfall_campaign, sparc_se,
+                                      sparc_sim)
+    from ldpc_sparc_tpu_torch.models import sparc as tsparc
+    from ldpc_sparc_tpu_torch.models.ldpc import get_code
+    from ldpc_sparc_tpu_torch.ops.transforms import SparcDesign
+    p, d = SparcParams(P=15.0, R=1.0, L=16, M=32), DecodeParams(t_max=3)
+    return {
+        "sparc_sim": lambda **kw: sparc_sim(p, d, 1.0, seed=0, **kw),
+        "sparc_encode": lambda **kw: tsparc.sparc_encode(p, 1.0, seed=0, **kw),
+        "design_for_params": lambda **kw: tsparc.design_for_params(p, 1.0, 0, **kw),
+        "sparc_mc_counts": lambda **kw: tmc.sparc_mc_counts(p, d, 1.0, 0, 2, **kw),
+        "sparc_ber_sweep": lambda **kw: tmc.sparc_ber_sweep(p, d, [1.0], 0, 2, **kw),
+        "_ldpc_block_counts": lambda **kw: tmc._ldpc_block_counts(
+            get_code("802.16", "1/2", 3), 2.0, 0, 0, 4, 5, "sumprod2", **kw),
+        "ldpc_waterfall_campaign": lambda **kw: ldpc_waterfall_campaign(
+            LdpcParams(standard="802.16", rate="1/2", z=3), n_measurements=1,
+            min_errors=1, max_blocks=8, batch=4, max_iters=5, **kw),
+        "sparc_se": lambda **kw: sparc_se(1.0, p, 3, 50, **kw),
+        "SparcDesign.for_params": lambda **kw: SparcDesign.for_params(p, 1.0, 0, **kw),
+        "SparcDesign.build": lambda **kw: SparcDesign.build(np.ones((1, 1)), 16, 32,
+                                                            80, 0, **kw),
+        "stack_designs": lambda **kw: stack_designs(p, 1.0, 0, 2, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_no_card_calls()))
+def test_entry_point_takes_the_card_unless_asked_for_the_cpu(name):
+    """device=None means the CUDA device: without one the call raises, and
+    says how to ask for the CPU; device="cpu" runs."""
+    call = _no_card_calls()[name]
+    assert call(device="cpu") is not None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_cli_without_device_needs_a_card(tmp_path):
+    argv = [a for a in SWEEP if a not in ("--device", "cpu")] + ["--out", str(tmp_path)]
+    if torch.cuda.is_available():
+        return   # a card is present: the CLI would run the sweep on it
+    with pytest.raises(SystemExit) as err:
+        cli.main(argv)
+    assert "no CUDA device" in str(err.value) and "--device cpu" in str(err.value)
+    assert not (tmp_path / "sparc_sweep.jsonl").exists()

@@ -60,23 +60,27 @@ def test_se_expectation_matches_jax(M):
 @pytest.mark.parametrize("name", sorted(CODES))
 def test_sparc_se_matches_jax_within_monte_carlo_error(name):
     want, tau_j = jse.sparc_se(1.0, JParams(**CODES[name]), 25, 4000, seed=0)
-    got, tau_t = sparc_se(1.0, SparcParams(**CODES[name]), 25, 4000, seed=0)
+    got, tau_t = sparc_se(1.0, SparcParams(**CODES[name]), 25, 4000, seed=0,
+                          device="cpu")
     assert got.shape == want.shape and tau_t.shape == np.asarray(tau_j).shape
     assert np.all(got[0] == 1.0)
     assert np.abs(got - want).max() <= 0.05
 
 
 def test_sparc_se_is_seeded_and_stops_early():
-    a, _ = sparc_se(1.0, SparcParams(**CODES["plain"]), 25, 1000, seed=3)
-    b, _ = sparc_se(1.0, SparcParams(**CODES["plain"]), 25, 1000, seed=3)
+    a, _ = sparc_se(1.0, SparcParams(**CODES["plain"]), 25, 1000, seed=3,
+                    device="cpu")
+    b, _ = sparc_se(1.0, SparcParams(**CODES["plain"]), 25, 1000, seed=3,
+                    device="cpu")
     np.testing.assert_array_equal(a, b)
     assert a[-1].max() < 1e-3                 # below threshold: psi -> 0
-    near, _ = sparc_se(1.0, SparcParams(**CODES["plain-near-threshold"]), 25, 1000)
+    near, _ = sparc_se(1.0, SparcParams(**CODES["plain-near-threshold"]), 25, 1000,
+                       device="cpu")
     assert near[-1].min() > 0.3               # above the algorithmic threshold
 
 
 def test_sparc_se_t_max_one_and_modulated():
-    psi, tau = sparc_se(1.0, SparcParams(**CODES["plain"]), 1, 100)
+    psi, tau = sparc_se(1.0, SparcParams(**CODES["plain"]), 1, 100, device="cpu")
     assert psi.shape == (1, 1) and tau.shape == (1,) and np.isfinite(tau).all()
     with pytest.raises(NotImplementedError):
         sparc_se(1.0, SparcParams(P=15.0, R=1.0, L=64, M=16, modulated=True, K=2),
@@ -87,8 +91,9 @@ def test_sparc_se_t_max_one_and_modulated():
 
 def test_amp_matches_state_evolution():
     params = SparcParams(**CODES["plain"])
-    psi_se, _ = sparc_se(1.0, params, 12, 4000, seed=0)
-    nmse = np.mean([sparc_sim(params, DecodeParams(t_max=12), 1.0, seed=s)["nmse"]
+    psi_se, _ = sparc_se(1.0, params, 12, 4000, seed=0, device="cpu")
+    nmse = np.mean([sparc_sim(params, DecodeParams(t_max=12), 1.0, seed=s,
+                              device="cpu")["nmse"]
                     .numpy()[:, 0] for s in range(8)], axis=0)
     for t in range(1, 5):
         assert abs(nmse[t] - psi_se[t, 0]) < 0.08, (t, nmse[t], psi_se[t, 0])

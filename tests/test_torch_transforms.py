@@ -33,7 +33,7 @@ CODES = {
 def _designs(name, seed=5):
     kw, var = CODES[name]
     jd = jtr.SparcDesign.for_params(JParams(**kw), var, seed)
-    td = ttr.SparcDesign.for_params(TParams(**kw), var, seed)
+    td = ttr.SparcDesign.for_params(TParams(**kw), var, seed, device="cpu")
     return jd, td
 
 
@@ -109,7 +109,7 @@ def test_dense_matches_jax():
     """The materialised A of a 2x2-block design with a zero block."""
     W = np.array([[2.0, 0.0], [1.0, 3.0]])
     jd = jtr.SparcDesign.build(W, 8, 4, 8, seed=7)
-    td = ttr.SparcDesign.build(W, 8, 4, 8, seed=7)
+    td = ttr.SparcDesign.build(W, 8, 4, 8, seed=7, device="cpu")
     np.testing.assert_allclose(td.dense(), jd.dense(), rtol=1e-6, atol=1e-6)
 
 
@@ -133,3 +133,66 @@ def test_plain_chain_option_is_the_same_on_cpu():
     torch.testing.assert_close(td.ab(x), td.ab(x, fwht_kernel=False),
                                rtol=0, atol=0)
 
+
+
+# ---- offset-0 products through K1's fused entry points -------------------------
+
+@pytest.mark.parametrize("E,B", [(1, 1), (1, 3), (4, 2)])
+@pytest.mark.parametrize("idx_side_is_input", [True, False])
+def test_srht_apply_offset0_matches_jax(E, B, idx_side_is_input):
+    """The port's srht_apply (which takes srht_scatter_fwht / srht_fwht_gather
+    on a full offset-0 window) against the JAX srht_apply on the same numpy
+    inputs, with a block scale, for one block and several and a batch of
+    rows: within 1e-5 of the largest entry (float32 in both; torch's matmul
+    precision is "highest" by default on the CPU)."""
+    w, k = 256, 37
+    rng = np.random.default_rng(E * 10 + B)
+    idx = np.stack([np.sort(rng.choice(w, k, replace=False)) for _ in range(E)])
+    signs = (rng.integers(0, 2, (E, w)) * 2 - 1).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, E).astype(np.float32)
+    in_dim, out_dim = (k, w) if idx_side_is_input else (w, k)
+    vals = rng.normal(size=(B, E, in_dim)).astype(np.float32)
+    want = np.stack([np.asarray(jtr.srht_apply(
+        jnp.asarray(vals[b]), jnp.asarray(idx.astype(np.int32)), jnp.asarray(signs),
+        w, in_dim, out_dim, idx_side_is_input, offset=0, scale=jnp.asarray(scale)))
+        for b in range(B)])
+    ti = torch.as_tensor(idx)
+    for idx32 in (None, ti.to(torch.int32)):
+        got = ttr.srht_apply(torch.as_tensor(vals), ti, torch.as_tensor(signs), w,
+                             in_dim, out_dim, idx_side_is_input, offset=0,
+                             scale=torch.as_tensor(scale), idx32=idx32)
+        assert got.shape == (B, E, out_dim)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+        plain = ttr.srht_apply(torch.as_tensor(vals), ti, torch.as_tensor(signs), w,
+                               in_dim, out_dim, idx_side_is_input, offset=0,
+                               scale=torch.as_tensor(scale), fwht_kernel=False)
+        assert torch.equal(got, plain)
+
+
+def test_design_checks_and_copies_its_index_set():
+    _, td = _designs("sc")
+    assert td._idx32.dtype == torch.int32 and torch.equal(td._idx32.long(), td.idx)
+    bad = td.idx.clone()
+    bad[0, -1] = td.w
+    with pytest.raises(ValueError, match="outside"):
+        ttr.SparcDesign(bad, td.signs, td.scale, td.rows, td.cols, td.Lr, td.Lc,
+                        td.Mr, td.Mc, td.w, td.n, td.LM, td.offset)
+
+
+def test_entry_points_take_the_card_by_default():
+    """device=None resolves to the CUDA device or raises; the tests ask for
+    the CPU by name."""
+    from ldpc_sparc_tpu_torch.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    kw, var = CODES["plain"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttr.SparcDesign.for_params(TParams(**kw), var, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttr.SparcDesign.build(np.ones((1, 1)), 8, 4, 8, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttr.stack_designs(TParams(**kw), var, 0, 2)

@@ -237,3 +237,176 @@ def test_k2_kernel_argument_checks():
         wht_cuda._check(torch.zeros(3, 256), torch.ones(2, 256))
     with pytest.raises(ValueError):
         wht_cuda._check(torch.zeros(256, 4).t(), None)
+
+
+# ---- K1's routes and the SRHT products folded into it -------------------------
+# The fused entry points run their plain versions on CPU tensors. Against
+# the JAX package's srht_apply on the same numpy inputs (offset 0, no block
+# scale) within 1e-5 of the largest entry: both are float32 throughout, with
+# torch's matmul precision "highest" (the module fixture) and the JAX chain
+# in float32; the two chains sum the same terms in another order.
+
+def _srht_inputs(E, B, k, w, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.stack([np.sort(rng.choice(w, k, replace=False)) for _ in range(E)])
+    signs = (rng.integers(0, 2, (E, w)) * 2 - 1).astype(np.float32)
+    vals = rng.normal(size=(B, E, k)).astype(np.float32)
+    x = rng.normal(size=(B, E, w)).astype(np.float32)
+    return idx.astype(np.int32), signs, vals, x
+
+
+@pytest.mark.parametrize("E,B,k,w", [(1, 1, 9, 64), (1, 3, 40, 1 << 10),
+                                     (3, 2, 17, 1 << 9), (2, 1, 256, 256),
+                                     (2, 2, 1, 32)])
+def test_fused_srht_products_match_jax_srht_apply(E, B, k, w):
+    from ldpc_sparc_tpu.ops import transforms as jtr
+    idx, signs, vals, x = _srht_inputs(E, B, k, w, seed=E + B + k)
+    want_s = np.stack([np.asarray(jtr.srht_apply(
+        jnp.asarray(vals[b]), jnp.asarray(idx), jnp.asarray(signs), w, k, w,
+        idx_side_is_input=True, offset=0)) for b in range(B)])
+    want_g = np.stack([np.asarray(jtr.srht_apply(
+        jnp.asarray(x[b]), jnp.asarray(idx), jnp.asarray(signs), w, w, k,
+        idx_side_is_input=False, offset=0)) for b in range(B)])
+    for dtype in (torch.int32, torch.int64):
+        ti = torch.as_tensor(idx).to(dtype)
+        got_s = wht_cuda.srht_scatter_fwht(
+            torch.as_tensor(vals).reshape(B * E, k), ti, torch.as_tensor(signs), w)
+        got_g = wht_cuda.srht_fwht_gather(
+            torch.as_tensor(x).reshape(B * E, w), torch.as_tensor(signs), ti)
+        assert got_s.shape == (B * E, w) and got_g.shape == (B * E, k)
+        assert np.abs(got_s.numpy().reshape(B, E, w) - want_s).max() \
+            <= 1e-5 * np.abs(want_s).max()
+        assert np.abs(got_g.numpy().reshape(B, E, k) - want_g).max() \
+            <= 1e-5 * np.abs(want_g).max()
+
+
+@pytest.mark.parametrize("apply_pre", [True, False])
+@pytest.mark.parametrize("signed", [True, False])
+def test_fused_srht_products_equal_the_composition_bit_for_bit(apply_pre, signed):
+    """The zero fill, scatter_, transform, gather composition srht_apply was
+    made of, written out here."""
+    E, B, k, w = 3, 2, 21, 128
+    idx, signs, vals, x = _srht_inputs(E, B, k, w, seed=7)
+    ti = torch.as_tensor(idx).long()
+    ts = torch.as_tensor(signs) if signed else None
+    X = torch.zeros(B, E, w)
+    X.scatter_(-1, ti.expand(B, E, -1), torch.as_tensor(vals))
+    want_s = wht_cuda.fwht_signed_ref(X.reshape(B * E, w), ts, apply_pre)
+    Y = wht_cuda.fwht_signed_ref(torch.as_tensor(x).reshape(B * E, w), ts, apply_pre)
+    want_g = Y.reshape(B, E, w).gather(-1, ti.expand(B, E, -1)).reshape(B * E, k)
+    tv, tx = torch.as_tensor(vals).reshape(B * E, k), torch.as_tensor(x).reshape(B * E, w)
+    for fn_s, fn_g in ((wht_cuda.srht_scatter_fwht, wht_cuda.srht_fwht_gather),
+                       (wht_cuda.srht_scatter_fwht_ref, wht_cuda.srht_fwht_gather_ref)):
+        assert torch.equal(fn_s(tv, torch.as_tensor(idx), ts, w, apply_pre), want_s)
+        assert torch.equal(fn_g(tx, ts, torch.as_tensor(idx), apply_pre), want_g)
+
+
+def test_cpu_tensors_never_launch_the_fused_products():
+    before = wht_cuda.LAUNCHES
+    idx = torch.tensor([[0, 3, 5]], dtype=torch.int32)
+    wht_cuda.srht_scatter_fwht(torch.ones(2, 3), idx, None, 8)
+    wht_cuda.srht_fwht_gather(torch.ones(2, 8), torch.ones(1, 8), idx)
+    wht_cuda.fwht_signed(torch.ones(2, 1 << 10), None, False, route="two_pass")
+    assert wht_cuda.LAUNCHES == before
+
+
+_IDX = torch.tensor([[0, 3, 5]], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("vals,idx,signs,w", [
+    (torch.ones(2, 3, dtype=torch.float64), _IDX, None, 8),       # dtype
+    (torch.ones(3), _IDX[0], None, 8),                            # not 2-D
+    (torch.ones(3, 2).t(), _IDX, None, 8),                        # not contiguous
+    (torch.ones(2, 3), _IDX, None, 12),                           # width
+    (torch.ones(2, 3), _IDX.float(), None, 8),                    # idx dtype
+    (torch.ones(2, 4), _IDX, None, 8),                            # k differs
+    (torch.ones(3, 3), _IDX.repeat(2, 1), None, 8),               # rows % E
+    (torch.ones(2, 3), torch.tensor([[0, 3, 8]]), None, 8),       # idx >= w
+    (torch.ones(2, 3), torch.tensor([[-1, 3, 5]]), None, 8),      # idx < 0
+    (torch.ones(2, 3), _IDX, torch.ones(2, 8), 8),                # E of signs
+    (torch.ones(2, 3), _IDX, torch.ones(1, 4), 8),                # sign width
+    (torch.ones(2, 3), _IDX.to("meta"), None, 8),                 # another device
+])
+def test_srht_scatter_fwht_rejects_bad_arguments(vals, idx, signs, w):
+    before = wht_cuda.LAUNCHES
+    with pytest.raises(ValueError):
+        wht_cuda.srht_scatter_fwht(vals, idx, signs, w)
+    assert wht_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("x,signs,idx", [
+    (torch.ones(2, 8, dtype=torch.float64), None, _IDX),          # dtype
+    (torch.ones(8), None, _IDX),                                  # not 2-D
+    (torch.ones(8, 2).t(), None, _IDX),                           # not contiguous
+    (torch.ones(2, 12), None, _IDX),                              # width
+    (torch.ones(2, 8), None, _IDX.double()),                      # idx dtype
+    (torch.ones(3, 8), None, _IDX.repeat(2, 1)),                  # rows % E
+    (torch.ones(2, 8), None, torch.tensor([[0, 3, 8]])),          # idx >= w
+    (torch.ones(2, 8), torch.ones(2, 8), _IDX),                   # E of signs
+    (torch.ones(2, 8), None, _IDX.to("meta")),                    # another device
+    (torch.ones(2, 8), None, _IDX.repeat(1, 2)[:, ::2]),          # idx not contiguous
+])
+def test_srht_fwht_gather_rejects_bad_arguments(x, signs, idx):
+    before = wht_cuda.LAUNCHES
+    with pytest.raises(ValueError):
+        wht_cuda.srht_fwht_gather(x, signs, idx)
+    assert wht_cuda.LAUNCHES == before
+
+
+def test_validate_false_skips_only_the_range_check():
+    """validate=False leaves out the one check that reads the indices."""
+    with pytest.raises(ValueError):
+        wht_cuda.srht_scatter_fwht(torch.ones(2, 4), _IDX, None, 8, validate=False)
+    got = wht_cuda.srht_fwht_gather(torch.ones(2, 8), None, _IDX, validate=False)
+    assert got.shape == (2, 3)
+
+
+@pytest.mark.parametrize("route,log_w", [("block", 16), ("cluster", 15),
+                                         ("cluster", 20), ("two_pass", 9),
+                                         ("rows", 10)])
+def test_a_route_that_cannot_take_the_width_raises(route, log_w):
+    with pytest.raises(ValueError):
+        wht_cuda.fwht_signed(torch.zeros(1, 1 << log_w), None, False, route=route)
+    if log_w <= 16:
+        idx = torch.zeros(1, 1, dtype=torch.int32)
+        with pytest.raises(ValueError):
+            wht_cuda.srht_fwht_gather(torch.zeros(1, 1 << log_w), None, idx,
+                                      route=route)
+        with pytest.raises(ValueError):
+            wht_cuda.srht_scatter_fwht(torch.zeros(1, 1), idx, None, 1 << log_w,
+                                       route=route)
+
+
+def test_fused_products_have_no_two_pass_route():
+    idx = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="two_pass"):
+        wht_cuda.srht_fwht_gather(torch.zeros(1, 1 << 10), None, idx,
+                                  route="two_pass")
+    with pytest.raises(ValueError, match="two_pass"):
+        wht_cuda.srht_scatter_fwht(torch.zeros(1, 1), idx, None, 1 << 10,
+                                   route="two_pass")
+
+
+@pytest.mark.parametrize("log_w", range(0, 23))
+def test_route_table(log_w):
+    """The documented table: one block up to 2^15, a cluster of w / 2^15
+    blocks up to 2^19, two passes above; every width has exactly the routes
+    ROUTE_LOG_W lists."""
+    want = (("block", 1) if log_w <= 15 else
+            ("cluster", {16: 2, 17: 4, 18: 8, 19: 16}[log_w]) if log_w <= 19 else
+            ("two_pass", 1))
+    assert wht_cuda.fwht_route(log_w) == want
+    lo, hi = wht_cuda.ROUTE_LOG_W[want[0]]
+    assert lo <= log_w <= hi
+    assert wht_cuda._route_code(None, log_w) == wht_cuda.ROUTES.index(want[0])
+    takes = {r for r in wht_cuda.ROUTES
+             if wht_cuda.ROUTE_LOG_W[r][0] <= log_w <= wht_cuda.ROUTE_LOG_W[r][1]}
+    assert takes == {r for r, ok in (("block", log_w <= 15),
+                                     ("cluster", 16 <= log_w <= 19),
+                                     ("two_pass", log_w >= 10)) if ok}
+
+
+def test_route_table_rejects_widths_outside():
+    for log_w in (-1, 23):
+        with pytest.raises(ValueError):
+            wht_cuda.fwht_route(log_w)
