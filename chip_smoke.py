@@ -11,13 +11,15 @@ products), and drives and times the paths `bench.py` times:
   * slice A, the main path: a plain SPARC AMP decode at L=1024, M=512,
     R=1.0, P=15, awgn_var 1, t_max 25, 256 codewords (phases 2-5);
   * slice B: the LDPC BP decode of 256 codewords of 802.11n r=1/2 z=27 at
-    sigma^2 = 10^-0.2, sumprod2, at most 50 iterations (phases 6-7), and
+    sigma^2 = 10^-0.2, sumprod2, at most 50 iterations (phases 6-7; K4's two
+    variants are held bit-equal to each other and timed side by side), and
     the waterfall campaign's 16-point segment, 802.16 r=1/2 z=27, seed 7,
     batch 512, sumprod2, at most 200 iterations (phase 8).
   * slice C: the spatially coupled SPARC decode of the reference's large
     SC configuration (L=2048, M=512, omega=6, Lambda=32, R=1.5, P=15,
     awgn_var 1, t_max 40, 64 codewords; E=192 design blocks of width 2^15)
-    through K1+K3, K2+K3 and the plain path (phases 9-10), and the
+    through K1+K3, K2+K3 and the plain path (phases 9-10; K2 bit for bit on
+    ternary rows at a width of each of its kernels and layouts), and the
     `sparc-sweep` entry point on it through K2, resumed from its store
     (phase 11).
 
@@ -95,6 +97,10 @@ SC_AWGN, SC_T_MAX, SC_BATCH, SC_REPS = 1.0, 40, 64, 3
 # 1e-4 at 2^19. A wrong Hadamard sign or index moves it past 5e-3 (one bad
 # entry of H_256 alone gives 8e-3), so 1e-3 separates the two.
 K2_REL_BOUND = 1e-3
+# widths phase 9 holds K2 bit for bit on ternary rows: the mma.sync kernel
+# (2^8), the wgmma tile kernel (2^12, 2^15), the wide layout (2^16, a = b;
+# 2^19, the headline's; 2^20, a = b = 1024)
+K2_TERNARY_LOG_W = (8, 12, 15, 16, 19, 20)
 # K2 against the float32 K1: the JAX package's bf16 bound,
 # max|d| / mean|ref| <= 0.04 (benchmarks/fwht_pallas_check.py:154-157)
 K2_F32_BOUND = 0.04
@@ -261,15 +267,25 @@ def slice_b(dev, card):
         torch.cuda.synchronize()
         err, capped = bp_compare(got, want, iters)
         k4_err = max(k4_err, err)
+        by_variant = {v: bp_cuda.bp_decode_kernel(llr, code.graph, iters, corr, 0.7,
+                                                  variant=v) for v in bp_cuda.VARIANTS}
+        torch.cuda.synchronize()
+        for v, res_v in by_variant.items():
+            if not (torch.equal(res_v.iterations, got.iterations)
+                    and torch.equal(res_v.app, got.app)):
+                raise AssertionError(f"K4 variant {v!r} is not bit-equal to the table's "
+                                     f"({bp_cuda.k4_variant(code.graph)!r}) on {cfg}")
         parts.append(f"{cfg[0]} r{cfg[1]}{cfg[3] if cfg[3] != 'A' else ''} z={cfg[2]} "
                      f"{method} {snr:g} dB batch {batch} <= {iters} iterations "
-                     f"({bp_cuda.shared_bytes(code.graph)} B shared): max|d app| "
+                     f"({bp_cuda.k4_variant(code.graph)}, "
+                     f"{bp_cuda.shared_bytes(code.graph)} B shared): max|d app| "
                      f"{err:.2e}, iterations mean/max "
                      f"{float(got.iterations.float().mean()):.2f}/"
                      f"{int(got.iterations.max())}, {capped} at the cap")
     phase(6, f"bp_decode_kernel vs plain (iterations equal on all; decisions and "
              f"app rtol {BP_TOL[0]:g} atol {BP_TOL[1]:g} on those stopped by "
-             f"parity): " + "; ".join(parts))
+             f"parity), and its variants {bp_cuda.VARIANTS} torch.equal in iterations "
+             f"and app on every codeword: " + "; ".join(parts))
 
     # -- 7: the BP path (bench.py's ldpc_bp_ms_per_block) ------------------------
     code = get_code(*BP_CODE)
@@ -322,15 +338,23 @@ def slice_b(dev, card):
     k4_ops = 14 * n_lxor + 2 * code.graph.E * code.graph.z * int(phases.sum())
     k4_bound = least_ms(4 * (2 * BP_BATCH * code.N + BP_BATCH), k4_ops)
     chain = int(phases.max()) * (2 * int(deg.max()) - 3)
+    # the second bound: that chain at the latency of one dependent Lxor,
+    # which the timing kernel of csrc/bp_decode.cu measures on one warp
+    lo, hi = 20_000, 120_000
+    lxor_us = 1e3 * (min(bp_cuda.lxor_chain_ms(hi) for _ in range(3))
+                     - min(bp_cuda.lxor_chain_ms(lo) for _ in range(3))) / (hi - lo)
+    chain_ms = chain * lxor_us / 1e3
     draws = []
     for s in BP_DRAW_SEEDS:
         _, llr_s = bp_inputs(code, BP_SNR_DB, BP_BATCH, s, dev)
         slowest = int(bp_cuda.bp_decode_kernel(llr_s, code.graph, BP_ITERS, True,
                                                0.7).iterations.max())
-        ms = cuda_ms(lambda: bp_cuda.bp_decode_kernel(llr_s, code.graph, BP_ITERS,
-                                                      True, 0.7))
-        draws.append(f"seed {s} slowest {slowest} it {ms:.4f} ms "
-                     f"({ms / BP_BATCH:.6f} ms/block)")
+        ms = {v: cuda_ms(lambda: bp_cuda.bp_decode_kernel(
+            llr_s, code.graph, BP_ITERS, True, 0.7, variant=v))
+            for v in bp_cuda.VARIANTS}
+        draws.append(f"seed {s} slowest {slowest} it "
+                     + " / ".join(f"{v} {t:.4f} ms" for v, t in ms.items())
+                     + f" ({ms[bp_cuda.k4_variant(code.graph)] / BP_BATCH:.6f} ms/block)")
     phase(7,f"BP path {BP_CODE[0]} r={BP_CODE[1]} z={BP_CODE[2]} batch {BP_BATCH} "
              f"sumprod2 <= {BP_ITERS} iterations at sigma^2 = 10^-{BP_SNR_DB / 10:g} on "
              f"{card}: bit errors {bit_errs} | K4 launches {launches} | iterations "
@@ -341,9 +365,12 @@ def slice_b(dev, card):
              f"path {ms_block[False]:.6f} (best decode {best[False] * 1e3:.4f} ms) | "
              f"bp_decode_kernel {k4_ms:.4f} ms (plain {k4_plain_ms:.4f} ms; bound "
              f"{k4_bound['bound_ms']:.6f} ms by {k4_bound['bound_by']}: {n_lxor} Lxor "
-             f"evaluations, {k4_ops} operations; the slowest codeword's chain is "
-             f"{chain} Lxors, {1e3 * k4_ms / chain:.3f} us each) | "
-             f"bp_decode_kernel across draws: " + ", ".join(draws))
+             f"evaluations, {k4_ops} operations; second bound {chain_ms:.4f} ms: the "
+             f"slowest codeword's chain of {chain} Lxors at {lxor_us:.4f} us a "
+             f"dependent Lxor, against {1e3 * k4_ms / chain:.3f} us each in the "
+             f"decode) | bp_decode_kernel across draws, variants "
+             f"{' / '.join(bp_cuda.VARIANTS)} (the table takes "
+             f"{bp_cuda.k4_variant(code.graph)}): " + ", ".join(draws))
 
     # -- 8: the campaign segment (bench.py's campaign_blocks_per_s) --------------
     params = LdpcParams(*CAMPAIGN_CODE)
@@ -427,7 +454,7 @@ def slice_c(dev, card, errs):
 
     # -- 9: K2 against its plain version ----------------------------------------
     exact = []
-    for log_w in (12, 15, 16):
+    for log_w in K2_TERNARY_LOG_W:
         w = 1 << log_w
         x = torch.randint(-1, 2, (4, w), generator=gen, device=dev).float()
         signs = (torch.randint(0, 2, (2, w), generator=gen, device=dev) * 2 - 1).float()
@@ -439,7 +466,7 @@ def slice_c(dev, card, errs):
                 raise AssertionError(f"K2 on ternary rows at 2^{log_w} pre={pre} "
                                      f"signs={sg is not None} is not exact")
         exact.append(f"2^{log_w}")
-    k2_err, parts, times = 0.0, [], {}
+    k2_err, parts, times, unsigned = 0.0, [], {}, {}
     head_signs = (torch.randint(0, 2, (1, 1 << 19), generator=gen, device=dev) * 2
                   - 1).float()
     for name, rows, signs in (("SC", SC_BATCH * design.E, design.signs),
@@ -471,9 +498,11 @@ def slice_c(dev, card, errs):
             k2_err = max(k2_err, err)
             times[name, pre] = (
                 cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, signs, pre)),
-                cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, signs, pre), reps=5),
+                cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, signs, pre), reps=2,
+                        warmup=1),
                 cuda_ms(lambda: wht_cuda.fwht_signed(x, signs, pre)),
-                cuda_ms(lambda: wht_cuda.fwht_signed_ref(x, signs, pre), reps=5))
+                cuda_ms(lambda: wht_cuda.fwht_signed_ref(x, signs, pre), reps=2,
+                        warmup=1))
             parts.append(f"{name} ({rows}, 2^{signs.shape[1].bit_length() - 1}) "
                          f"{'pre' if pre else 'post'}: rel {rel:.2e}, max|d| {err:.2e}, "
                          f"vs f32 K1 {f32_rel:.4f}; K1 vs its plain version max|d| "
@@ -481,6 +510,19 @@ def slice_c(dev, card, errs):
                          f"{times[name, pre][0]:.4f} ms, plain "
                          f"{times[name, pre][1]:.4f} ms, K1 {times[name, pre][2]:.4f} "
                          f"ms, K1's plain {times[name, pre][3]:.4f} ms")
+        # unsigned; the mma.sync kernel beside the table's where it takes the
+        # width; the wide layout's two launches singly
+        extra = {"no signs": cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, None, False))}
+        if wht_cuda.k2_layout(signs.shape[1].bit_length() - 1)[1] == "tile":
+            extra["mma.sync kernel pre"] = cuda_ms(
+                lambda: wht_cuda.fwht_signed_2mm(x, signs, True, kernel="mma"))
+            extra["mma.sync kernel no signs"] = cuda_ms(
+                lambda: wht_cuda.fwht_signed_2mm(x, None, False, kernel="mma"))
+        else:
+            for p in (1, 2):
+                extra[f"launch {p} (post)"] = cuda_ms(
+                    lambda: wht_cuda.fwht_signed_2mm(x, signs, False, passes=p))
+        unsigned[name] = ", ".join(f"{k} {v:.4f} ms" for k, v in extra.items())
         del x
     sc_shape = (SC_BATCH * design.E, design.E, design.idx.shape[1],
                 design.w.bit_length() - 1)
@@ -502,16 +544,23 @@ def slice_c(dev, card, errs):
     a, b = wht_cuda.split_ab(design.w)
     k2_bound = least_ms(4 * (2 * SC_SRHT[0] * design.w + design.E * design.w),
                      2 * SC_SRHT[0] * (a * b * b + a * a * b), BF16_FLOPS)
+    a, b = wht_cuda.split_ab(1 << 19)
+    head_bound = least_ms(4 * (2 * BATCH + 1) * (1 << 19),
+                          2 * BATCH * (a * b * b + a * a * b), BF16_FLOPS)
     phase(9, f"fwht_signed_2mm on {card}: bit-exact on ternary rows at "
-             f"{', '.join(exact)} (pre, post, no signs); Gaussian rows against "
+             f"{', '.join(exact)} (pre, post, no signs; kernel and layout by "
+             f"`k2_layout`); Gaussian rows against "
              f"plain (relative Frobenius <= {K2_REL_BOUND:g}) and against float32 K1 "
              f"(max|d|/mean|K1| <= {K2_F32_BOUND:g}); K1 against its plain version "
              f"(max|d| <= {FWHT_REL_BOUND:g} max|ref|): " + "; ".join(parts)
              + f" | K1 at {SC_SRHT} by route and its fused products, ms: "
              + ", ".join(f"{k} {v:.4f}" for k, v in k1_t.items())
+             + " | K2 " + "; ".join(f"{k}: {v}" for k, v in unsigned.items())
              + f" | K2's bound at the SC shape {k2_bound['bound_ms']:.4f} ms by "
-             f"{k2_bound['bound_by']}; the pair of cuBLAS bf16 products ha @ (x @ hb) "
-             f"SC {lib_ms['SC']:.4f} ms, headline {lib_ms['headline']:.4f} ms")
+             f"{k2_bound['bound_by']}, at the headline's {head_bound['bound_ms']:.4f} "
+             f"ms by {head_bound['bound_by']}; the pair of cuBLAS bf16 products "
+             f"ha @ (x @ hb) SC {lib_ms['SC']:.4f} ms, headline "
+             f"{lib_ms['headline']:.4f} ms")
 
     # -- 10: the SC decode through K1+K3, K2+K3 and the plain path --------------
     # K3 against its plain version at the SC decode's (batch, L, M) first

@@ -110,16 +110,18 @@ def load() -> ctypes.CDLL:
             lib.ldpc_srht_fwht_gather.restype = i32
             lib.ldpc_fwht_active_clusters.argtypes = [i32]
             lib.ldpc_fwht_active_clusters.restype = i32
-            lib.ldpc_fwht_2mm.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
-                                          ptr]
+            lib.ldpc_fwht_2mm.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
+                                          i32, i32, i32, ptr]
             lib.ldpc_fwht_2mm.restype = i32
             lib.ldpc_denoise_update.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                                 i64, i32, ptr]
             lib.ldpc_denoise_update.restype = i32
             lib.ldpc_bp_decode.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                            i32, i32, i32, i32, ctypes.c_float,
-                                           ptr]
+                                           i32, i32, i32, ptr]
             lib.ldpc_bp_decode.restype = i32
+            lib.ldpc_bp_lxor_chain.argtypes = [ptr, i32, i32, ptr]
+            lib.ldpc_bp_lxor_chain.restype = i32
             lib.ldpc_cuda_error_string.argtypes = [i32]
             lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -42,7 +42,19 @@ runs, or the call raises; on a CPU tensor the plain version runs.
 K1 is float32 throughout. K2 is the two-sided form H_a . X . H_b on the
 (a, b) view of each row with bf16 operands and float32 accumulation, the
 TPU kernel's default operand type, so it is a different computation: its
-plain version `fwht_signed_2mm_ref` rounds where the kernel does.
+plain version `fwht_signed_2mm_ref` rounds where the kernel does. K2's
+kernel and layout are a fixed function of the width too (`k2_layout`;
+`csrc/fwht_2mm.cu` says how each works):
+
+    log2 w    kernel   layout   the row's intermediate T
+    8 - 11    "mma"    "tile"   stays in shared memory, one launch
+    12 - 15   "wgmma"  "tile"   stays in shared memory, one launch
+    16 - 20   "wgmma"  "wide"   crosses device memory in bf16, two launches
+
+`fwht_signed_2mm(..., kernel="mma")` runs the `mma.sync` kernel up to 2^15
+(the yardstick the `wgmma` tile kernel was measured against). The
+kernels take bf16 operands only: `mm_dtype="float32"` runs the plain
+version on a CPU tensor and raises `NotImplementedError` on a CUDA one.
 """
 
 from __future__ import annotations
@@ -60,6 +72,8 @@ SEG_LOG_W = 15  # the cluster route's segment: one block holds 2^15 floats
 # K2's widths: a >= 16 fills an mma tile; 2^20 is the TPU kernel's bound
 MIN_LOG_W_2MM, MAX_LOG_W_2MM = 8, 20
 TILE_MAX_LOG_W_2MM = 15   # above, K2's intermediate crosses device memory
+K2_KERNELS = ("mma", "wgmma")
+WGMMA_MIN_LOG_W = 12      # a = b = 64: one 64-row wgmma tile of each factor
 MM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 LAUNCHES = 0
@@ -355,6 +369,18 @@ def fwht_signed_2mm_ref(x: torch.Tensor, signs: torch.Tensor | None,
     return y.reshape(R, w)
 
 
+def k2_layout(log_w: int) -> tuple[str, str]:
+    """(kernel, layout) K2 takes at width 2^log_w, a fixed table: the
+    `mma.sync` kernel below 2^12, where a Hadamard factor is narrower than
+    a 64-row `wgmma` tile, and the `wgmma` kernels from there up; layout
+    "tile" (the row's intermediate stays on chip, one launch) up to 2^15
+    and "wide" (it crosses device memory in bf16, two launches) above."""
+    if not MIN_LOG_W_2MM <= log_w <= MAX_LOG_W_2MM:
+        raise ValueError(f"no K2 kernel for width 2^{log_w}")
+    return ("wgmma" if log_w >= WGMMA_MIN_LOG_W else "mma",
+            "tile" if log_w <= TILE_MAX_LOG_W_2MM else "wide")
+
+
 def _check_width_2mm(w: int) -> None:
     if w & (w - 1) or not 1 << MIN_LOG_W_2MM <= w <= 1 << MAX_LOG_W_2MM:
         raise ValueError(f"fwht_signed_2mm takes widths 2^{MIN_LOG_W_2MM} to "
@@ -362,16 +388,36 @@ def _check_width_2mm(w: int) -> None:
 
 
 def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
-                    apply_pre: bool, mm_dtype: str = "bfloat16") -> torch.Tensor:
+                    apply_pre: bool, mm_dtype: str = "bfloat16",
+                    kernel: str | None = None, passes: int = 3) -> torch.Tensor:
     """K2: the signed FWHT of each row of x (R, w) as two tensor-core
-    products; see `fwht_signed_2mm_ref`. The kernel takes bf16 operands
-    only; the width must lie in [2^8, 2^20] on any device."""
+    products; see `fwht_signed_2mm_ref`. The kernels take bf16 operands
+    only; the width must lie in [2^8, 2^20] on any device. kernel: None
+    takes `k2_layout`'s, "mma" or "wgmma" runs that kernel or raises
+    ("mma" takes up to 2^15, "wgmma" 2^12 and up). passes (timing only, "wide" layout): 1
+    runs the first launch alone, 2 the second; the result is then not the
+    transform."""
     global LAUNCHES_2MM
     if mm_dtype not in MM_DTYPES:
         raise ValueError(f"mm_dtype must be one of {sorted(MM_DTYPES)}")
+    if kernel is not None and kernel not in K2_KERNELS:
+        raise ValueError(f"kernel must be one of {K2_KERNELS} or None, got {kernel!r}")
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
     _check_width_2mm(x.shape[1])
+    log_w = x.shape[1].bit_length() - 1
+    table_kernel, layout = k2_layout(log_w)
+    if kernel is None:
+        kernel = table_kernel
+    if kernel == "wgmma" and log_w < WGMMA_MIN_LOG_W:
+        raise ValueError(f"the wgmma kernel takes widths from 2^{WGMMA_MIN_LOG_W}, "
+                         f"not 2^{log_w}")
+    if kernel == "mma" and layout == "wide":
+        raise ValueError(f"the mma kernel takes widths up to "
+                         f"2^{TILE_MAX_LOG_W_2MM}, not 2^{log_w}")
+    if passes not in (1, 2, 3) or (passes != 3 and layout != "wide"):
+        raise ValueError("passes is 3, or 1 or 2 for a width above "
+                         f"2^{TILE_MAX_LOG_W_2MM}")
     if x.device.type == "cpu":
         return fwht_signed_2mm_ref(x, signs, apply_pre, mm_dtype)
     if x.device.type != "cuda":
@@ -384,14 +430,16 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
     y = torch.empty_like(x)
     if R == 0:
         return y
-    log_w = w.bit_length() - 1
     scratch = (torch.empty(R, w, dtype=torch.bfloat16, device=x.device)
-               if log_w > TILE_MAX_LOG_W_2MM else None)
+               if layout == "wide" else None)
     E = 1 if signs is None else signs.shape[0]
+    bits = (torch.empty(E, w // 32, dtype=torch.int32, device=x.device)
+            if signs is not None and kernel != "mma" else None)
     status = lib.ldpc_fwht_2mm(
         x.data_ptr(), None if signs is None else signs.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), R, log_w, E,
-        int(apply_pre), _stream(x))
+        None if scratch is None else scratch.data_ptr(),
+        None if bits is None else bits.data_ptr(), R, log_w, E,
+        int(apply_pre), K2_KERNELS.index(kernel), passes, _stream(x))
     _build.check(status, "fwht_signed_2mm")
     LAUNCHES_2MM += 1
     return y

@@ -291,15 +291,17 @@ def _bp_gate(got, want, max_iters):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", [None, "check_thread", "split"])
 @pytest.mark.parametrize("batch", [1, 3, 256])
 @pytest.mark.parametrize("name", sorted(BP_CASES))
-def test_bp_decode_kernel_matches_plain(name, batch):
+def test_bp_decode_kernel_matches_plain(name, batch, variant):
     dev = _card()
     cfg, method, snr = BP_CASES[name]
     code, x, llr = _bp_inputs(cfg, snr, batch, dev)
     correction = method != "minsum"
     before = bp_cuda.LAUNCHES
-    got = bp_cuda.bp_decode_kernel(llr, code.graph, BP_ITERS, correction, 0.7)
+    got = bp_cuda.bp_decode_kernel(llr, code.graph, BP_ITERS, correction, 0.7,
+                                   variant=variant)
     assert bp_cuda.LAUNCHES == before + 1
     want = bp_cuda.bp_decode_ref(llr, code.graph, BP_ITERS, correction, 0.7)
     torch.cuda.synchronize()
@@ -318,6 +320,44 @@ def test_bp_decode_kernel_matches_plain_at_campaign_shape():
     want = bp_cuda.bp_decode_ref(llr, code.graph, 200, True, 0.7)
     torch.cuda.synchronize()
     _bp_gate(got, want, 200)
+
+
+K4_EQUAL_CASES = [(name, batch, BP_ITERS) for name in sorted(BP_CASES)
+                  for batch in (1, 3, 256, 512, 1000)] + [("campaign", 512, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch,iters", K4_EQUAL_CASES)
+def test_bp_decode_kernel_variants_are_bit_equal(name, batch, iters):
+    """"split" runs every Lxor of "check_thread" on the same operands in the
+    same order: iterations and APP are `torch.equal` on every codeword,
+    those at the cap included, with either compiled kernel (two blocks an SM
+    or one) and with more blocks than the card holds at once (batch 1000)."""
+    dev = _card()
+    cfg, method, snr = (BP_CASES[name] if name != "campaign"
+                        else (("802.16", "1/2", 27, "A"), "sumprod", 2.5))
+    code, x, llr = _bp_inputs(cfg, snr, batch, dev)
+    correction = method != "minsum"
+    want = bp_cuda.bp_decode_kernel(llr, code.graph, iters, correction, 0.7,
+                                    variant="check_thread")
+    for kw in (dict(variant="split", two_blocks=True),
+               dict(variant="split", two_blocks=False),
+               dict(variant="check_thread", two_blocks=False)):
+        got = bp_cuda.bp_decode_kernel(llr, code.graph, iters, correction, 0.7, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.iterations, want.iterations), kw
+        assert torch.equal(got.app, want.app), kw
+
+
+@pytest.mark.cuda
+def test_lxor_shortcuts_are_not_taken():
+    """The kernel's Lxor is the plain one (expf, log1pf, no fast math): one
+    dependent Lxor on a warp takes a measurable, positive time, and the
+    sum-product chain costs more than the min-sum chain."""
+    _card()
+    sp = bp_cuda.lxor_chain_ms(50_000, True)
+    ms = bp_cuda.lxor_chain_ms(50_000, False)
+    assert sp > ms > 0.0
 
 
 @pytest.mark.cuda
@@ -373,23 +413,51 @@ def test_bp_paths_on_the_card():
 # ---- K2: the signed FWHT as two tensor-core products -------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_w", [12, 15, 16])
+@pytest.mark.parametrize("E", [1, 2, 192])
+@pytest.mark.parametrize("log_w", list(range(8, 21)))
 @pytest.mark.parametrize("mode", ["pre", "post", "none"])
-def test_fwht_signed_2mm_exact_on_ternary_rows(log_w, mode):
-    """Every intermediate is an integer of magnitude <= 256, which bf16
-    holds: K2 equals the exact float32 transform bit for bit."""
+def test_fwht_signed_2mm_exact_on_ternary_rows(log_w, mode, E):
+    """Every intermediate is an integer of magnitude <= 1024, which bf16
+    holds up to 256 and a float32 sum beyond: K2 equals the exact float32
+    transform bit for bit, at every width (both kernels, both layouts,
+    a = b at the even ones) and with 1, 2 and 192 sign rows."""
     dev = _card()
     w = 1 << log_w
     gen = torch.Generator(device=dev).manual_seed(log_w)
-    x = torch.randint(-1, 2, (6, w), generator=gen, device=dev).float()
+    rows = E * (3 if E <= 2 else 1)
+    x = torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
     signs = None if mode == "none" else (
-        torch.randint(0, 2, (3, w), generator=gen, device=dev) * 2 - 1).float()
+        torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
     before = wht_cuda.LAUNCHES_2MM
     got = wht_cuda.fwht_signed_2mm(x, signs, mode == "pre")
     assert wht_cuda.LAUNCHES_2MM == before + 1
     want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_w", [12, 13, 14, 15])
+def test_fwht_signed_2mm_kernels_agree(log_w):
+    """From 2^12 to 2^15 both kernels take the width: the `mma.sync` one and
+    the `wgmma` one give the same bits on ternary rows, each named
+    explicitly; below, "wgmma" raises, above, "mma"."""
+    dev = _card()
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(log_w)
+    x = torch.randint(-1, 2, (5, w), generator=gen, device=dev).float()
+    signs = (torch.randint(0, 2, (5, w), generator=gen, device=dev) * 2 - 1).float()
+    for pre in (True, False):
+        a = wht_cuda.fwht_signed_2mm(x, signs, pre, kernel="mma")
+        b = wht_cuda.fwht_signed_2mm(x, signs, pre, kernel="wgmma")
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="wgmma"):
+        wht_cuda.fwht_signed_2mm(torch.zeros(2, 1 << 11, device=dev), None, True,
+                                 kernel="wgmma")
+    with pytest.raises(ValueError, match="mma"):
+        wht_cuda.fwht_signed_2mm(torch.zeros(2, 1 << 16, device=dev), None, True,
+                                 kernel="mma")
 
 
 @pytest.mark.cuda

@@ -280,6 +280,104 @@ def test_kernel_wrapper_on_cpu_and_its_checks():
                                       ids[ids >= 0])
 
 
+# ---- K4's "split" variant: two threads a check --------------------------------
+
+@pytest.mark.parametrize("cfg,snr_db", [(("802.11n", "1/2", 27, "A"), 1.5),
+                                        (("802.16", "3/4", 150, "B"), 3.5)])
+@pytest.mark.parametrize("method", ["sumprod", "minsum"])
+def test_split_model_equals_plain_decode(cfg, snr_db, method):
+    """The split kernel's order of work (one chain of forward prefixes, one
+    of backward suffixes, the extrinsic values dealt out between the two
+    threads by the parity of their edge) in plain PyTorch, each row at its
+    true degree: bit-equal to `_decode_lanes`, iterations and APP, codewords
+    at the cap included. Lxor with the padding value 1e30 is the identity to
+    the last bit, which is why the padded trellis of the plain decode and
+    the true-degree trellis of the kernels agree."""
+    tc = tldpc.get_code(*cfg)
+    _, llr = _noisy_llrs(tc, snr_db, 3, seed=11)
+    ch = torch.as_tensor(llr)
+    corr = method != "minsum"
+    want = tbp._decode_lanes(ch, tc.graph, 6, corr, 0.7)
+    got = bp_cuda.decode_split_model(ch, tc.graph, 6, corr, 0.7)
+    assert torch.equal(got.iterations, want.iterations)
+    assert torch.equal(got.app, want.app)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 20])
+@pytest.mark.parametrize("correction", [True, False])
+def test_split_check_model_equals_lxfb(d, correction):
+    """One check row of degree d, degree 1 and 2 included, against the
+    padded forward-backward trellis `lxfb` (pad rows hold 1e30): extrinsic
+    values and aggregate bit for bit."""
+    rng = np.random.default_rng(d)
+    rows = torch.as_tensor(rng.normal(scale=4.0, size=(d, 5, 9)).astype(np.float32))
+    rows[0, 0, 0] = 0.0                      # sign(0) is +1 inside Lxor
+    padded = torch.cat([rows, torch.full((3, 5, 9), 1e30)])
+    want_ext, want_aggr = tbp.lxfb(padded, correction)
+    ext, aggr = bp_cuda.split_check_model(list(rows), correction, 0.7)
+    scale = 1.0 if correction else 0.7
+    assert torch.equal(torch.stack(ext), want_ext[:d] * scale)
+    assert torch.equal(aggr, want_aggr)
+
+
+def test_k4_shared_bytes_and_variant_table():
+    """`shared_bytes` per layout (the split variant holds a third (E, z)
+    plane), the table that picks a variant and a block size from the graph,
+    and the compiled kernel a launch takes."""
+    g = tldpc.get_code("802.11n", "1/2", 27).graph
+    tables = 4 * (3 * g.E + g.Np + g.Mp + 2)
+    assert bp_cuda.shared_bytes(g, "check_thread") == tables + 4 * (2 * g.E * g.z
+                                                                    + 2 * g.Nv)
+    assert bp_cuda.shared_bytes(g, "split") == tables + 4 * (3 * g.E * g.z + 2 * g.Nv)
+    assert bp_cuda.shared_bytes(g) == bp_cuda.shared_bytes(g, "split")
+    with pytest.raises(ValueError, match="variant"):
+        bp_cuda.shared_bytes(g, "warp")
+    want = {("802.11n", "1/2", 27, "A"): ("split", 704),
+            ("802.11n", "5/6", 81, "A"): ("split", 704),
+            ("802.16", "1/2", 27, "A"): ("split", 704),
+            ("802.16", "1/2", 150, "A"): ("check_thread", 1024),
+            ("802.16", "3/4", 150, "B"): ("check_thread", 928)}
+    for cfg, (variant, threads) in want.items():
+        gr = tldpc.get_code(*cfg).graph
+        assert bp_cuda.k4_variant(gr) == variant
+        assert bp_cuda.block_threads(gr, variant) == threads
+        assert bp_cuda.shared_bytes(gr) <= bp_cuda.MAX_SHARED
+    # the split variant's third plane fits at 802.16 r=3/4 B z=150 ...
+    big = tldpc.get_code("802.16", "3/4", 150, "B").graph
+    assert bp_cuda.shared_bytes(big, "split") == 188384 <= bp_cuda.MAX_SHARED
+    # ... and a graph that fits one thread a check but not the third plane is
+    # refused by name and sent to "check_thread" by the table
+    wide = tbp.TannerGraph.build(ttables.get_protograph("802.16", "1/2", 250), 250)
+    assert (bp_cuda.shared_bytes(wide, "check_thread") <= bp_cuda.MAX_SHARED
+            < bp_cuda.shared_bytes(wide, "split"))
+    assert bp_cuda.k4_variant(wide) == "check_thread"
+    bp_cuda._check(torch.zeros(1, wide.Nv), wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        bp_cuda._check(torch.zeros(1, wide.Nv), wide, "split")
+    # two blocks an SM: "check_thread" up to 512 threads; "split" for a batch
+    # of one wave of short checks
+    assert bp_cuda.two_blocks_an_sm("check_thread", 352, 512, 132, 8)
+    assert not bp_cuda.two_blocks_an_sm("check_thread", 1024, 256, 132, 7)
+    assert bp_cuda.two_blocks_an_sm("split", 704, 256, 132, 8)
+    assert not bp_cuda.two_blocks_an_sm("split", 704, 512, 132, 8)
+    assert not bp_cuda.two_blocks_an_sm("split", 704, 256, 132, 20)
+    assert not bp_cuda.two_blocks_an_sm("split", 1024, 256, 132, 8)
+
+
+def test_k4_wrapper_variant_argument():
+    """An unknown variant raises on any device; a CPU tensor runs the plain
+    decode whatever variant is named."""
+    _, tc = _codes("802.11n", "1/2", 27)
+    _, llr = _noisy_llrs(tc, 2.0, 2, seed=5)
+    ch = torch.as_tensor(llr)
+    want = bp_cuda.bp_decode_ref(ch, tc.graph, 10, True, 0.7)
+    for variant in bp_cuda.VARIANTS:
+        got = bp_cuda.bp_decode_kernel(ch, tc.graph, 10, True, 0.7, variant=variant)
+        assert torch.equal(got.app, want.app)
+    with pytest.raises(ValueError, match="variant"):
+        bp_cuda.bp_decode_kernel(ch, tc.graph, 10, True, 0.7, variant="warp")
+
+
 def test_ldpc_config_matches_jax():
     for std, rate, z, p in [("802.11n", "5/6", 81, "A"), ("802.16", "3/4", 150, "B")]:
         a, b = tcfg.LdpcParams(std, rate, z, p), jcfg.LdpcParams(std, rate, z, p)

@@ -191,6 +191,71 @@ def test_fwht_signed_2mm_ref_matches_jax_kernel(pallas_dtype, w, apply_pre, sign
         assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
 
 
+@pytest.mark.parametrize("w", [1 << 14, 1 << 16])
+@pytest.mark.parametrize("apply_pre", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fwht_signed_2mm_ref_matches_jax_kernel_at_k2_widths(pallas_dtype, w, apply_pre,
+                                                            dtype):
+    """The widths "2mm" sends to K2 (2^14 and up), one of each layout of the
+    Hopper kernel (the intermediate on chip at 2^14, through device memory
+    at 2^16), both operand types. float32: both sum exact float32 products
+    in another order, so within 1e-5 of the largest entry (the bound the
+    float32 transforms are held to). bf16: a T entry whose float32 sum lands
+    near a rounding boundary may round the other way in one package, one
+    bf16 ulp on about 2^-10 of the entries, a relative Frobenius error near
+    1e-4; a wrong sign or index gives 5e-3 or more, so 1e-3 separates them."""
+    pallas_dtype(dtype)
+    x, signs = _rows_2mm(w, "gaussian", w + apply_pre)
+    want = np.asarray(wht_pallas._fwht_signed_2mm(
+        jnp.asarray(x), jnp.asarray(np.tile(signs, (2, 1))), w, apply_pre,
+        interpret=True))
+    got = wht_cuda.fwht_signed_2mm_ref(torch.as_tensor(x), torch.as_tensor(signs),
+                                       apply_pre, mm_dtype=dtype).numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("log_w", list(range(8, 21)))
+def test_k2_layout_table(log_w):
+    """K2's kernel and layout are a fixed function of the width: `mma.sync`
+    below 2^12 (a Hadamard factor narrower than a 64-row wgmma tile), wgmma
+    from there; the intermediate on chip up to 2^15, through device memory
+    above."""
+    kernel, layout = wht_cuda.k2_layout(log_w)
+    assert kernel == ("mma" if log_w < 12 else "wgmma")
+    assert layout == ("tile" if log_w <= 15 else "wide")
+    a, b = wht_cuda.split_ab(1 << log_w)
+    assert (kernel == "wgmma") == (a >= 64 and b >= 64)
+    assert (layout == "tile") == (2 * a * b <= 1 << 16)   # the row's bf16 tile: 64 KB
+
+
+@pytest.mark.parametrize("log_w", [0, 7, 21, 22])
+def test_k2_layout_table_rejects_widths_outside(log_w):
+    with pytest.raises(ValueError):
+        wht_cuda.k2_layout(log_w)
+
+
+def test_k2_kernel_and_passes_arguments():
+    """`kernel` and `passes` are checked on any device, before a launch; a
+    CPU tensor then runs the plain version whatever kernel is named."""
+    x = torch.ones(2, 1 << 12)
+    want = wht_cuda.fwht_signed_2mm_ref(x, None, True)
+    for kernel in (None, "mma", "wgmma"):
+        assert torch.equal(wht_cuda.fwht_signed_2mm(x, None, True, kernel=kernel), want)
+    with pytest.raises(ValueError, match="kernel"):
+        wht_cuda.fwht_signed_2mm(x, None, True, kernel="cublas")
+    with pytest.raises(ValueError, match="wgmma"):
+        wht_cuda.fwht_signed_2mm(torch.ones(2, 1 << 11), None, True, kernel="wgmma")
+    with pytest.raises(ValueError, match="passes"):
+        wht_cuda.fwht_signed_2mm(x, None, True, passes=1)
+    with pytest.raises(ValueError, match="passes"):
+        wht_cuda.fwht_signed_2mm(torch.ones(1, 1 << 16), None, True, passes=0)
+    assert wht_cuda.fwht_signed_2mm(torch.ones(1, 1 << 16), None, True,
+                                    passes=2).shape == (1, 1 << 16)
+
+
 def test_fwht_signed_2mm_ref_equals_the_exact_transform_on_ternary_rows():
     """bf16 operands lose nothing on {-1, 0, 1} rows up to b = 256, so the
     plain version equals the float32 transform bit for bit."""
