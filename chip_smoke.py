@@ -22,6 +22,15 @@ products), and drives and times the paths `bench.py` times:
     ternary rows at a width of each of its kernels and layouts), and the
     `sparc-sweep` entry point on it through K2, resumed from its store
     (phase 11).
+  * slice D: the concatenated LDPC-SPARC point `bench.py` times (802.16
+    r=1/2 z=150, mults=4, M=2, L=14,400, n=14,400, P=19.44, R=1.0, t_max 25,
+    awgn_var P/3.8, seed (3, 0), 20 trials). K1 at (20, 2^15) and K4 at
+    (80 codewords, <= 6 and <= 200 iterations) against their plain versions,
+    `decode_batch` through K1 + K4 against the plain path for `sequential`,
+    `naive` and `integrated` and against the per-trial `decode` (phase 12);
+    `concat_mc_trial_errors` timed with its three parts, and `concat-sweep`
+    at linear SNR 2.0 and 4.286, resumed from its store and held to the rows
+    of `docs/artifacts/concat_sweep.jsonl` (phase 13).
 
 Each phase prints one line. The line before the last is a JSON
 summary of the kernels, each with its time, its plain version's, the least
@@ -111,6 +120,25 @@ SWEEP_FLAGS = ["--P", "15", "--R", "1.5", "--L", "2048", "--M", "512",
                "--t-max", str(SC_T_MAX), "--trials", str(SWEEP_TRIALS), "--num-snrs", "3",
                "--snr-start", "10", "--snr-stop", "20", "--fwht-mode", "2mm",
                "--device", "cuda"]
+
+# slice D: bench.py's concatenated point (bench.py:136-156)
+CONCAT = dict(standard="802.16", rate="1/2", z=150, mults=4, logM=1, P=19.44,
+              R_sparc=1.0, t_max=25)
+CONCAT_SNR, CONCAT_SEED, CONCAT_TRIALS, CONCAT_DECODER = 3.8, (3, 0), 20, "integrated"
+CONCAT_BP_ITERS = (6, 200)            # ConcatCodec.decode's inner and final BP
+CONCAT_PATHS = ("sequential", "naive", "integrated")
+# K1 + K4 against the plain path: K4 is bit-equal to the plain BP decode and
+# K1 differs from the plain FWHT chain in the order of its float32 adds, so
+# a trial that the plain path decodes without error must decode without
+# error; on a trial that does not converge the rounding is amplified and the
+# two counts may differ by at most this share of the trial's user bits
+CONCAT_COUNT_TOL = 0.01
+# phase 13: concat-sweep at the two ends of the waterfall; BER at SNR 2.0
+# within this of the artifact's row of the same decoder (20 trials of 7,200
+# bits against 25: the rows' own spread across 3, 5 and 25 runs is 0.002)
+CONCAT_SWEEP_SNRS, CONCAT_SWEEP_RUNS, CONCAT_BER_TOL = (2.0, 4.286), 20, 0.03
+CONCAT_SWEEP_DECODERS = ("amp_only", "sequential", "naive", "integrated")
+CONCAT_ARTIFACT = "docs/artifacts/concat_sweep.jsonl"
 
 
 def phase(n, text):
@@ -233,25 +261,53 @@ def bp_inputs(code, snr_db, batch, seed, dev):
     return x.to(dev), (2 / sigma2 * y).to(dev)
 
 
-def bp_compare(got, want, max_iters):
-    """The K4 gate (see K4_CASES). Returns (max |d app| over the codewords
-    that stopped by parity, number that ran to the cap)."""
+def bp_compare(got, want, max_iters, every=False):
+    """The K4 gate (see K4_CASES). The APPs are held to BP_TOL on the
+    codewords that stopped by parity, or on every codeword (`every`: for a
+    cap of a few iterations, where rounding has had no time to grow). Fails
+    if that set is empty. Returns (max |d app| over the set, number of
+    codewords that ran to the cap, size of the set)."""
     import torch
     if not torch.equal(got.iterations, want.iterations):
         n = int((got.iterations != want.iterations).sum())
         raise AssertionError(f"iterations differ on {n} codewords")
     stopped = want.iterations < max_iters
-    if not torch.equal(got.app[stopped] < 0, want.app[stopped] < 0):
-        raise AssertionError("decisions differ on a codeword that stopped")
-    torch.testing.assert_close(got.app[stopped], want.app[stopped],
+    held = torch.ones_like(stopped) if every else stopped
+    if not bool(held.any()):
+        raise AssertionError("no codeword stopped by parity: nothing to compare")
+    if not torch.equal(got.app[held] < 0, want.app[held] < 0):
+        raise AssertionError("decisions differ on a compared codeword")
+    torch.testing.assert_close(got.app[held], want.app[held],
                                rtol=BP_TOL[0], atol=BP_TOL[1])
-    err = float((got.app[stopped] - want.app[stopped]).abs().max()) \
-        if bool(stopped.any()) else 0.0
-    return err, int((~stopped).sum())
+    err = float((got.app[held] - want.app[held]).abs().max())
+    return err, int((~stopped).sum()), int(held.sum())
+
+
+def k4_bounds(graph, iterations, max_iters, N):
+    """K4's bound from what a draw needs: ({"bound_ms", "bound_by"}, Lxor
+    evaluations, operations, the slowest codeword's chain of dependent
+    Lxors). A codeword that stops after `it` iterations runs
+    min(it + 1, cap) check phases; a check of degree d takes 3 d - 5 Lxor
+    evaluations (d - 2 forward prefixes, d - 1 backward suffixes, d - 2
+    extrinsic outputs), each counted as 14 float32 operations (sign, two
+    abs, min, a + b, a - b, two abs, two exp, two log1p, two adds); a
+    variable phase takes 2 adds an edge. It reads the LLRs and writes the
+    APPs and the iteration counts. The chain is the slowest codeword's
+    phases times the 2 d_max - 3 Lxors that follow one another in the
+    largest check."""
+    import torch
+    batch = iterations.numel()
+    deg = (graph.chk_edges >= 0).sum(1)
+    phases = torch.clamp(iterations.long() + 1, max=max_iters)
+    n_lxor = int(phases.sum()) * graph.z * int((3 * deg - 5).sum())
+    ops = 14 * n_lxor + 2 * graph.E * graph.z * int(phases.sum())
+    bound = least_ms(4 * (2 * batch * N + batch), ops)
+    return bound, n_lxor, ops, int(phases.max()) * (2 * int(deg.max()) - 3)
 
 
 def slice_b(dev, card):
-    """Phases 6-8; returns K4's entry of the kernels line."""
+    """Phases 6-8; returns K4's entry of the kernels line and the latency
+    of one dependent Lxor in microseconds."""
     import torch
     from ldpc_sparc_tpu_torch import LdpcParams, get_code, ldpc_waterfall_campaign
     from ldpc_sparc_tpu_torch.ops import bp_cuda
@@ -265,7 +321,7 @@ def slice_b(dev, card):
         got = bp_cuda.bp_decode_kernel(llr, code.graph, iters, corr, 0.7)
         want = bp_cuda.bp_decode_ref(llr, code.graph, iters, corr, 0.7)
         torch.cuda.synchronize()
-        err, capped = bp_compare(got, want, iters)
+        err, capped, _ = bp_compare(got, want, iters)
         k4_err = max(k4_err, err)
         by_variant = {v: bp_cuda.bp_decode_kernel(llr, code.graph, iters, corr, 0.7,
                                                   variant=v) for v in bp_cuda.VARIANTS}
@@ -303,7 +359,7 @@ def slice_b(dev, card):
         raise AssertionError("BP path output has the wrong shape or is not finite")
     plain = code.decode(llr, BP_ITERS, "sumprod2", bp_kernel=False)
     torch.cuda.synchronize()
-    err, capped = bp_compare(res, plain, BP_ITERS)
+    err, capped, _ = bp_compare(res, plain, BP_ITERS)
     k4_err = max(k4_err, err)
 
     def bp_window(kernel):
@@ -323,21 +379,8 @@ def slice_b(dev, card):
                                                      True, 0.7))
     k4_plain_ms = cuda_ms(lambda: bp_cuda.bp_decode_ref(llr, code.graph, BP_ITERS,
                                                         True, 0.7), reps=5)
-    # K4's bound from what this draw needs. A codeword that stops after `it`
-    # iterations runs min(it + 1, cap) check phases; a check of degree d
-    # takes 3 d - 5 Lxor evaluations (d - 2 forward prefixes, d - 1 backward
-    # suffixes, d - 2 extrinsic outputs), each counted as 14 float32
-    # operations (sign, two abs, min, a + b, a - b, two abs, two exp, two
-    # log1p, two adds); a variable phase takes 2 adds an edge. It reads the
-    # LLRs and writes the APPs and the iteration counts. The slowest
-    # codeword's dependent chain is its phases times the 2 d_max - 3 Lxors
-    # that follow one another in the largest check.
-    deg = (code.graph.chk_edges >= 0).sum(1)
-    phases = torch.clamp(res.iterations.long() + 1, max=BP_ITERS)
-    n_lxor = int(phases.sum()) * code.graph.z * int((3 * deg - 5).sum())
-    k4_ops = 14 * n_lxor + 2 * code.graph.E * code.graph.z * int(phases.sum())
-    k4_bound = least_ms(4 * (2 * BP_BATCH * code.N + BP_BATCH), k4_ops)
-    chain = int(phases.max()) * (2 * int(deg.max()) - 3)
+    k4_bound, n_lxor, k4_ops, chain = k4_bounds(code.graph, res.iterations, BP_ITERS,
+                                                code.N)
     # the second bound: that chain at the latency of one dependent Lxor,
     # which the timing kernel of csrc/bp_decode.cu measures on one warp
     lo, hi = 20_000, 120_000
@@ -420,7 +463,8 @@ def slice_b(dev, card):
             "source": "ldpc_sparc_tpu_torch/csrc/bp_decode.cu",
             "replaces": "ldpc_sparc_tpu/ops/bp_pallas.py:56",
             "launches": launches, "max_abs_err": k4_err,
-            "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bound, "library_ms": None}
+            "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bound,
+            "library_ms": None}, lxor_us
 
 
 def sc_inputs(design, params, batch, dev):
@@ -695,6 +739,303 @@ def slice_c(dev, card, errs):
             **k2_bound, "library_ms": lib_ms["SC"]}
 
 
+def concat_problem():
+    """(sparc params, ldpc params, lengths, decode params, awgn_var) of
+    CONCAT, by the port's `param_calc`."""
+    from ldpc_sparc_tpu_torch import (DecodeParams, LdpcParams, SparcParams, get_code,
+                                      param_calc)
+    c = CONCAT
+    ldpc = LdpcParams(standard=c["standard"], rate=c["rate"], z=c["z"])
+    K = get_code(c["standard"], c["rate"], c["z"]).K
+    _, _, L, lengths = param_calc(c["mults"], c["logM"], ldpc, ldpc.rate_float,
+                                  c["R_sparc"], K)
+    sp = SparcParams(P=c["P"], R=c["R_sparc"], L=L, M=2 ** c["logM"])
+    return sp, ldpc, lengths, DecodeParams(t_max=c["t_max"]), c["P"] / CONCAT_SNR
+
+
+def slice_d(dev, card, lxor_us):
+    """Phases 12-13; returns the entries of K1 and K4 at the concatenated
+    path's shapes for the kernels line."""
+    import os
+    import tempfile
+    import torch
+    from ldpc_sparc_tpu_torch import ConcatCodec, _build, concat_mc_trial_errors
+    from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.ops.bridges import (bit_probs_to_section_probs,
+                                                  section_probs_to_bit_probs)
+    from ldpc_sparc_tpu_torch.parallel.montecarlo import (concat_mc_designs,
+                                                          concat_mc_transmit)
+
+    sp, ldpc, lengths, dp, awgn_var = concat_problem()
+    codec = ConcatCodec(sp, ldpc, lengths, True)
+    B, bi, bf = CONCAT_TRIALS, *CONCAT_BP_ITERS
+    designs = concat_mc_designs(codec, CONCAT_SEED, B, device=dev)
+    user_bits, ys = concat_mc_transmit(codec, designs, awgn_var, CONCAT_SEED)
+    if (designs.w, designs.offset, designs.LM, designs.n) != (1 << 15, 1, 28800, 14400):
+        raise AssertionError(f"the concatenated design is w={designs.w} "
+                             f"offset={designs.offset} LM={designs.LM} n={designs.n}")
+
+    # -- 12: K1 and K4 at this path's shapes, then the decode through them -------
+    w = designs.w
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xw = torch.randn(B, w, generator=gen, device=dev)
+    got, want = wht_cuda.fwht_signed(xw, None, True), wht_cuda.fwht_signed_ref(xw, None, True)
+    torch.cuda.synchronize()
+    k1_err, k1_lim = fwht_err(got, want)
+    if not k1_err <= k1_lim:
+        raise AssertionError(f"fwht_signed at ({B}, {w}) without signs: {k1_err} > {k1_lim}")
+    k1_ms = cuda_ms(lambda: wht_cuda.fwht_signed(xw, None, True), reps=200)
+    k1_plain_ms = cuda_ms(lambda: wht_cuda.fwht_signed_ref(xw, None, True), reps=20)
+    # the floor under any launch: a one-warp kernel that loads and stores 32
+    # floats, launched back to back
+    lib, io = _build.load(), torch.ones(96, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor_ms = cuda_ms(lambda: lib.ldpc_bp_lxor_chain(io.data_ptr(), 0, 1, stream),
+                       reps=500)
+    k1_bound = least_ms(8 * w * B, B * w * (w.bit_length() - 1))
+    del xw, got, want
+
+    # K4's inputs as the decode makes them: the LLRs that each AMP iteration of
+    # the plain `naive` decode hands to BP. In the first iteration no codeword
+    # satisfies its checks within 200 BP iterations and in the last every one
+    # does after few or none, so the one between is searched for: the iteration
+    # where the most codewords stop by parity after at least one BP iteration.
+    M, graph = sp.M, codec.code.graph
+    beta, z, tau = torch.zeros(B, designs.LM, device=dev), torch.zeros_like(ys), \
+        torch.ones(B, device=dev)
+    llrs = []
+    for _ in range(dp.t_max):
+        z, s, tau = codec._amp_step(designs, ys, beta, z, tau, fwht_kernel=False)
+        vk0 = section_probs_to_bit_probs(codec._mmse(s, tau) / codec.c_amp, M)
+        llrs.append(codec._bit_llrs(vk0).reshape(-1, codec.code.N).contiguous())
+        beta = codec.c_amp * bit_probs_to_section_probs(
+            codec.ldpc_bp(vk0, bi, False, bp_kernel=False), M)
+    working = [int(((it > 0) & (it < bf)).sum()) for it in (
+        bp_cuda.bp_decode_kernel(llr, graph, bf, True, 0.7).iterations for llr in llrs[1:-1])]
+    mid = 1 + max(range(len(working)), key=working.__getitem__)
+    if not working[mid - 1]:
+        raise AssertionError("no AMP iteration of the naive decode leaves BP a codeword "
+                             "that stops by parity after at least one iteration")
+    # (AMP iteration, cap, every codeword's APP compared or the stopped ones'):
+    # the soft 6-iteration call on every codeword, the 200-iteration call on
+    # those that stopped; the first iteration at 200 is timed only (the longest
+    # K4 call a decode can make), none of its codewords stops
+    cases = ((1, bi, True), (mid + 1, bi, True), (dp.t_max, bi, True),
+             (mid + 1, bf, False), (dp.t_max, bf, False), (1, bf, None))
+    k4_err, k4_parts, k4_first, k4_held = 0.0, [], None, 0
+    for t, iters, every in cases:
+        llr = llrs[t - 1]
+        res_k = bp_cuda.bp_decode_kernel(llr, graph, iters, True, 0.7)
+        res_p = bp_cuda.bp_decode_ref(llr, graph, iters, True, 0.7)
+        torch.cuda.synchronize()
+        if every is None:
+            if not torch.equal(res_k.iterations, res_p.iterations):
+                raise AssertionError(f"AMP iteration {t} <= {iters}: iterations differ")
+            err, capped, held = float("nan"), int((res_p.iterations >= iters).sum()), 0
+        else:
+            err, capped, held = bp_compare(res_k, res_p, iters, every)
+            k4_err, k4_held = max(k4_err, err), k4_held + held
+        working_k = int(((res_k.iterations > 0) & (res_k.iterations < iters)).sum())
+        ms = cuda_ms(lambda: bp_cuda.bp_decode_kernel(llr, graph, iters, True, 0.7),
+                     reps=50)
+        bound, n_lxor, ops, chain = k4_bounds(graph, res_k.iterations, iters, codec.code.N)
+        if k4_first is None:
+            plain_ms = cuda_ms(lambda: bp_cuda.bp_decode_ref(llr, graph, iters, True, 0.7),
+                               reps=3, warmup=1)
+            k4_first = dict(ms=ms, plain_ms=plain_ms, **bound)
+        k4_parts.append(f"AMP iteration {t} <= {iters}: "
+                        + (f"APP of {held} of {B * lengths.mults} codewords compared, "
+                           f"max|d app| {err:.2e}" if held else "timed, no APP compared")
+                        + f", iterations max {int(res_k.iterations.max())}, {capped} at "
+                        f"the cap, {working_k} stopped by parity after 1 or more, "
+                        f"{ms:.4f} ms (bound {bound['bound_ms']:.6f} ms by "
+                        f"{bound['bound_by']}, {n_lxor} Lxors; chain of {chain} at "
+                        f"{lxor_us:.4f} us {chain * lxor_us / 1e3:.4f} ms)")
+    if llr.shape != (B * lengths.mults, codec.code.N):
+        raise AssertionError(f"K4's batch on this path is {tuple(llr.shape)}")
+
+    want_counts = {"sequential": (2 * dp.t_max - 1, 1),
+                   "naive": (2 * dp.t_max, dp.t_max), "integrated": (2 * dp.t_max, dp.t_max)}
+    counts, errs, outs, worst = {}, {}, {}, 0
+    for d in CONCAT_PATHS:
+        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        bp_cuda.LAUNCHES = 0
+        out_k = codec.decode_batch(ys, designs, dp, d, bi, bf)
+        torch.cuda.synchronize()
+        counts[d] = (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES)
+        if wht_cuda.LAUNCHES_2MM or denoiser_cuda.LAUNCHES:
+            raise AssertionError("the concatenated decode launched K2 or K3")
+        out_p = codec.decode_batch(ys, designs, dp, d, bi, bf, fwht_kernel=False,
+                                   bp_kernel=False)
+        torch.cuda.synchronize()
+        if (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) != counts[d]:
+            raise AssertionError("the plain path launched a kernel")
+        if out_k.shape != (B, codec.user_bits_len) or out_k.dtype != torch.int32:
+            raise AssertionError(f"decode_batch {d}: output {tuple(out_k.shape)} "
+                                 f"{out_k.dtype}")
+        e_k, e_p = (out_k != user_bits).sum(-1), (out_p != user_bits).sum(-1)
+        errs[d], outs[d] = (e_k.tolist(), e_p.tolist()), out_k
+        if bool((e_k[e_p == 0] != 0).any()):
+            raise AssertionError(f"decode_batch {d}: a trial the plain path decodes "
+                                 f"without error has errors through K1 + K4: {errs[d]}")
+        diff = int((e_k - e_p).abs().max())
+        worst = max(worst, diff)
+        if diff > CONCAT_COUNT_TOL * codec.user_bits_len:
+            raise AssertionError(f"decode_batch {d}: per-trial counts differ by {diff}: "
+                                 f"{errs[d]}")
+    if counts != want_counts or not all(k1 > 0 and k4 > 0 for k1, k4 in counts.values()):
+        raise AssertionError(f"concatenated decode launches (K1, K4) {counts}, expected "
+                             f"{want_counts}")
+    if sum(errs["integrated"][0]) or sum(errs["naive"][0]):
+        raise AssertionError(f"naive / integrated leave errors at SNR {CONCAT_SNR}: {errs}")
+    if not sum(errs["sequential"][0]):
+        raise AssertionError("sequential decodes everything: the comparison on trials "
+                             "that do not converge is empty")
+    # decode_batch against the per-trial decode, on 4 of the trials
+    alone = 0
+    for t in (0, 7, 8, 19):
+        one = codec.build_design((CONCAT_SEED, t % min(8, B)), dev)
+        for d in CONCAT_PATHS:
+            bits = codec.decode(ys[t], one, dp, d, bi, bf)
+            e = int((bits != user_bits[t]).sum())
+            if abs(e - errs[d][0][t]) > CONCAT_COUNT_TOL * codec.user_bits_len or (
+                    errs[d][0][t] == 0 and e != 0):
+                raise AssertionError(f"decode {d} of trial {t} alone: {e} errors, "
+                                     f"{errs[d][0][t]} in the batch")
+            alone += torch.equal(bits, outs[d][t])
+    torch.cuda.synchronize()
+    phase(12, f"concatenated decode 802.16 r=1/2 z=150 mults=4 M=2 L={sp.L} n={codec.n} "
+              f"t_max {dp.t_max} SNR {CONCAT_SNR} seed {CONCAT_SEED}, {B} trials decoded "
+              f"as one batch (one design a row, gathered from 8; w=2^15, offset 1) on "
+              f"{card}: fwht_signed ({B}, {w}) no signs vs plain max|d| {k1_err:.2e} "
+              f"(bound {k1_lim:.2e}), {k1_ms:.5f} ms (plain {k1_plain_ms:.4f} ms; bound "
+              f"{k1_bound['bound_ms']:.5f} ms by {k1_bound['bound_by']}; launch floor "
+              f"{floor_ms:.5f} ms, a one-warp kernel back to back) | bp_decode_kernel "
+              f"({B * lengths.mults} codewords, z=150, {bp_cuda.k4_variant(codec.code.graph)}"
+              f") vs plain on the LLRs of the plain naive decode's AMP iterations, "
+              f"iterations equal, APP within rtol {BP_TOL[0]:g} atol {BP_TOL[1]:g} on "
+              f"{k4_held} codewords in all: " + "; ".join(k4_parts)
+              + f"; plain {k4_first['plain_ms']:.4f} ms at AMP iteration 1 <= {bi} | "
+              f"decode_batch through "
+              f"K1 + K4 vs fwht_kernel=False, bp_kernel=False, per-trial user-bit errors "
+              f"(kernel, plain): "
+              + "; ".join(f"{d} {sum(e[0])}, {sum(e[1])} (trials with errors "
+                          f"{sum(x > 0 for x in e[0])})" for d, e in errs.items())
+              + f" | equal wherever the plain path decodes without error, largest "
+              f"difference on the others {worst} bits (tolerance "
+              f"{CONCAT_COUNT_TOL * codec.user_bits_len:.0f}) | launches (K1, K4) {counts} "
+              f"| decode_batch vs decode of trials 0, 7, 8, 19 alone: {alone} of 12 "
+              f"decisions torch.equal, counts within the tolerance")
+
+    # -- 13: the timed point and the sweep ---------------------------------------
+    def point():
+        t = time.perf_counter()
+        e = concat_mc_trial_errors(sp, ldpc, lengths, True, dp, awgn_var, CONCAT_SEED,
+                                   CONCAT_TRIALS, CONCAT_DECODER, device=dev)
+        return time.perf_counter() - t, e      # the counts come back through a copy
+
+    def lap(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    _, e_mc = point()
+    best = min(point()[0] for _ in range(3))
+    # the same three calls that concat_mc_trial_errors makes, synchronised apart
+    parts, t0 = {}, lap(0.0)
+    codec2 = ConcatCodec(sp, ldpc, lengths, True)
+    designs2 = concat_mc_designs(codec2, CONCAT_SEED, CONCAT_TRIALS, device=dev)
+    parts["design_build_s"] = lap(t0)
+    bits2, ys2 = concat_mc_transmit(codec2, designs2, awgn_var, CONCAT_SEED)
+    parts["encode_channel_s"] = lap(t0) - parts["design_build_s"]
+    e_split = (bits2 != codec2.decode_batch(ys2, designs2, dp, CONCAT_DECODER)
+               ).sum(-1).cpu().numpy()
+    split_s = lap(t0)
+    parts["decode_s"] = split_s - parts["design_build_s"] - parts["encode_channel_s"]
+    if e_split.tolist() != e_mc.tolist():
+        raise AssertionError("the three parts called apart give other counts")
+    ber = float(e_mc.sum()) / (CONCAT_TRIALS * codec.user_bits_len)
+    if e_mc.shape != (CONCAT_TRIALS,) or e_mc.tolist() != errs[CONCAT_DECODER][0]:
+        raise AssertionError(f"concat_mc_trial_errors {e_mc.tolist()} against phase 12's "
+                             f"{errs[CONCAT_DECODER][0]}")
+
+    argv = ["--runs", str(CONCAT_SWEEP_RUNS), "--num-snrs", str(len(CONCAT_SWEEP_SNRS)),
+            "--snr-start", str(CONCAT_SWEEP_SNRS[0]), "--snr-stop",
+            str(CONCAT_SWEEP_SNRS[-1]), "--decoders", ",".join(CONCAT_SWEEP_DECODERS),
+            "--device", "cuda"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "ldpc_sparc_tpu_torch.cli", "concat-sweep", *argv,
+               "--out", tmp]
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        first = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+        dt = time.perf_counter() - t0
+        if first.returncode != 0:
+            raise AssertionError(f"concat-sweep failed:\n{first.stderr[-3000:]}")
+        store = os.path.join(tmp, "concat_sweep.jsonl")
+        with open(store) as f:
+            recs = [json.loads(ln) for ln in f if ln.strip()]
+        t0 = time.perf_counter()
+        again = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+        dt_again = time.perf_counter() - t0
+        with open(store) as f:
+            n_lines = sum(1 for ln in f if ln.strip())
+    if again.returncode != 0 or again.stdout.strip() or n_lines != len(recs):
+        raise AssertionError(f"concat-sweep rerun decoded again or failed: "
+                             f"{again.stdout!r} {again.stderr[-2000:]}")
+    meta, rows = recs[0], recs[1:]
+    if not meta["key"].startswith("meta:") or meta["config"]["L_sparc_ldpc"] != sp.L \
+            or len(rows) != len(CONCAT_SWEEP_SNRS) * len(CONCAT_SWEEP_DECODERS):
+        raise AssertionError(f"concat-sweep store is malformed: {recs}")
+    # the artifact's rows of the same configuration at 25 runs
+    with open(os.path.join(root, CONCAT_ARTIFACT)) as f:
+        art = [json.loads(ln) for ln in f if ln.strip()]
+    art_cfg = [r["key"].split(":")[1] for r in art if r["key"].startswith("meta:")
+               and r["config"]["runs"] == 25
+               and {k: r["config"][k] for k in ("standard", "rate", "z", "P", "mults",
+                                                 "logM", "R_sparc", "t_max")}
+               == {k: meta["config"][k] for k in ("standard", "rate", "z", "P", "mults",
+                                                   "logM", "R_sparc", "t_max")}]
+    if len(art_cfg) != 1:
+        raise AssertionError(f"{CONCAT_ARTIFACT} holds {len(art_cfg)} matching configurations")
+    art_ber = {r["key"].split(":", 2)[2]: r["ber"] for r in art
+               if r["key"].startswith(f"concat:{art_cfg[0]}:")}
+    table = []
+    for r in rows:
+        want = art_ber[r["key"].split(":", 2)[2]]
+        low = abs(r["snr"] - CONCAT_SWEEP_SNRS[0]) < 1e-9
+        ok = (abs(r["ber"] - want) <= CONCAT_BER_TOL if low else
+              (r["bit_errs"] == 0) == (r["decoder"] in ("naive", "integrated")))
+        if not ok or r["frames"] != CONCAT_SWEEP_RUNS:
+            raise AssertionError(f"concat-sweep row {r} against the artifact's BER {want}")
+        table.append(f"{r['decoder']} SNR {r['snr']:g}: BER {r['ber']:.5f} "
+                     f"(artifact {want:.5f})")
+    phase(13, f"concat_mc_trial_errors z=150 {CONCAT_DECODER}, {CONCAT_TRIALS} trials "
+              f"decoded, SNR {CONCAT_SNR}, seed {CONCAT_SEED} on {card}: "
+              f"concat_z150_integrated_point_s {best:.6f} (best of 3 after a warm-up) | "
+              f"concat_z150_trials_per_s {CONCAT_TRIALS / best:.2f} | its three calls "
+              f"once more, synchronised apart, {split_s:.6f} s: design build "
+              f"{parts['design_build_s']:.6f} s, encode + channel "
+              f"{parts['encode_channel_s']:.6f} s, decode {parts['decode_s']:.6f} s | "
+              f"BER {ber:.5f}, per-trial errors equal to phase 12's | concat-sweep "
+              f"--runs {CONCAT_SWEEP_RUNS}: {dt:.1f} s, rerun {dt_again:.1f} s decoding "
+              f"nothing; at SNR {CONCAT_SWEEP_SNRS[0]:g} BER within {CONCAT_BER_TOL} of "
+              f"{CONCAT_ARTIFACT}'s 25-run rows, at {CONCAT_SWEEP_SNRS[-1]:g} naive and "
+              f"integrated count 0 errors and amp_only and sequential more: "
+              + ", ".join(table))
+
+    common = {"route": "cuda", "library_ms": None}
+    return ({"name": "fwht_signed (concatenated decode)", **common,
+             "source": "ldpc_sparc_tpu_torch/csrc/fwht_signed.cu",
+             "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:138",
+             "launches": counts[CONCAT_DECODER][0], "max_abs_err": k1_err,
+             "ms": k1_ms, "plain_ms": k1_plain_ms, **k1_bound},
+            {"name": "bp_decode (concatenated decode)", **common,
+             "source": "ldpc_sparc_tpu_torch/csrc/bp_decode.cu",
+             "replaces": "ldpc_sparc_tpu/ops/bp_pallas.py:56",
+             "launches": counts[CONCAT_DECODER][1], "max_abs_err": k4_err, **k4_first})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -910,8 +1251,9 @@ def main():
              f"({BATCH}, {L}, {M}) {k3[0]:.4f} ms (plain {k3[1]:.4f} ms), "
              f"{4e3 * gb / k3[0]:.0f} GB/s | device copy {copy_gbs:.0f} GB/s")
 
-    k4 = slice_b(dev, card)
+    k4, lxor_us = slice_b(dev, card)
     k2 = slice_c(dev, card, errs)
+    k1_d, k4_d = slice_d(dev, card, lxor_us)
     # K1 as the main path launches it: the two fused products, averaged. Each
     # reads or writes the (rows, w) side once, the (rows, k) side once, the
     # (E, w) signs and the (E, k) int32 indices; w log2(w) adds a row.
@@ -939,7 +1281,7 @@ def main():
          "library_ms": None},
     ]
     kernels.insert(1, k2)
-    kernels.append(k4)
+    kernels += [k4, k1_d, k4_d]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -216,10 +216,11 @@ def decode_batch(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 
 def sparc_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
                  decode: DecodeParams, awgn_var: float,
-                 beta0: Optional[torch.Tensor] = None, fwht_mode: str = "ms"):
+                 beta0: Optional[torch.Tensor] = None, fwht_mode: str = "ms",
+                 fused_denoiser: bool | None = None):
     """AMP + hard decision + bits + the frame-error flag mean(psi) >= 1e-3."""
     res = amp_decode(y, design, params, decode, awgn_var, beta0,
-                     fwht_mode=fwht_mode)
+                     fused_denoiser=fused_denoiser, fwht_mode=fwht_mode)
     expect_err = res.psi.mean(-1) >= 0.001
     bits_out = bitops.msg_vector_to_bits(res.beta, params.M, params.K)
     return bits_out, res, expect_err
@@ -231,11 +232,14 @@ def sparc_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 
 def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
               seed, engine: str = "srht", device=None,
-              fwht_mode: str = "ms") -> dict:
+              fwht_mode: str = "ms",
+              fused_denoiser: bool | None = None) -> dict:
     """One trial end to end: bits -> beta0 -> x -> AWGN -> AMP -> metrics.
 
     Returns ber, cer, t_final, nmse, detect, ser, num_of_sec_errs and
     loc_of_sec_errs (the indices of the sections decoded wrong).
+    fused_denoiser: see `amp_decode`; False takes the plain denoiser tail,
+    whose stop fires where the JAX package's does.
     """
     device = resolve_device(device)
     design = design_for_params(params, awgn_var, seed, engine, device)
@@ -248,7 +252,7 @@ def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
                      rngmod.root_generator(rngmod.derive(seed, rngmod.CHANNEL),
                                            device))
     res = amp_decode(y, design, params, decode, awgn_var, beta0, W,
-                     fwht_mode=fwht_mode)
+                     fused_denoiser=fused_denoiser, fwht_mode=fwht_mode)
     expect_err = res.psi.mean() >= 0.001
     bits_out = bitops.msg_vector_to_bits(res.beta, params.M, params.K)
 

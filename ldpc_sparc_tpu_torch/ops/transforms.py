@@ -32,6 +32,10 @@ takes K2 only where the JAX package routes its Pallas kernel
 Products take leading batch dimensions: `ab` maps (..., L*M) to (..., n)
 and `az` maps (..., n) to (..., L*M), with one transform call per product
 for the whole batch.
+
+`DesignStack` is the Monte Carlo's "one design per trial": D one-block
+designs of one shape laid along `srht_apply`'s block axis, so that one
+product serves a batch of D rows, row t through design t.
 """
 
 from __future__ import annotations
@@ -310,6 +314,83 @@ class SparcDesign:
         """Materialize A as a dense (n, L*M) numpy array. Tests only."""
         eye = torch.eye(self.LM, dtype=torch.float32, device=self.device)
         return self.ab(eye).T.cpu().numpy()
+
+
+@dataclass(eq=False)
+class DesignStack:
+    """D designs of one block each (W is 1 x 1) and of one shape, stacked
+    along the block axis of `srht_apply`: one design per row of a batch.
+    `ab` maps (D, L*M) to (D, n) and `az` maps (D, n) to (D, L*M) with row t
+    going through design t, in one transform call. `for_trials` gathers the
+    leaves into a stack for any assignment of designs to rows. Row t's
+    result is that of `designs[t].ab` / `.az` on row t alone.
+
+    idx (D, min(n, LM)) int64, signs (D, max(n, LM)) and scale (D,) float32
+    are the single designs' leaves; w, n, LM and offset are theirs too.
+    """
+
+    idx: torch.Tensor
+    signs: torch.Tensor
+    scale: torch.Tensor
+    w: int
+    n: int
+    LM: int
+    offset: int
+    _idx32: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self._idx32 = self.idx.to(torch.int32)
+
+    @classmethod
+    def stack(cls, designs: list) -> "DesignStack":
+        """The stack of `designs` (each validated when it was built)."""
+        d0 = designs[0]
+        for d in designs:
+            if (d.E, d.Lr, d.Lc, d.w, d.n, d.LM, d.offset) != (
+                    1, 1, 1, d0.w, d0.n, d0.LM, d0.offset):
+                raise ValueError("a DesignStack takes one-block designs of one shape")
+        return cls(torch.cat([d.idx for d in designs]),
+                   torch.cat([d.signs for d in designs]),
+                   torch.cat([d.scale for d in designs]),
+                   d0.w, d0.n, d0.LM, d0.offset)
+
+    @property
+    def D(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.signs.device
+
+    def for_trials(self, didx: torch.Tensor) -> "DesignStack":
+        """The stack whose entry t is this one's entry didx[t] (int64, on
+        the stack's device): one design per row of a batch of len(didx)."""
+        return DesignStack(self.idx[didx], self.signs[didx], self.scale[didx],
+                           self.w, self.n, self.LM, self.offset)
+
+    def _apply(self, v: torch.Tensor, in_dim: int, out_dim: int,
+               idx_side_is_input: bool, fwht_kernel: bool, fwht_mode: str):
+        if v.shape != (self.D, in_dim):
+            raise ValueError(f"a stack of {self.D} designs takes ({self.D}, {in_dim}) "
+                             f"rows, one per design, got {tuple(v.shape)}")
+        out = srht_apply(v[None], self.idx, self.signs,
+                         self.w, in_dim, out_dim, idx_side_is_input,
+                         offset=self.offset, scale=self.scale,
+                         fwht_kernel=fwht_kernel, fwht_mode=fwht_mode,
+                         idx32=self._idx32)
+        return out[0]
+
+    def ab(self, beta: torch.Tensor, fwht_kernel: bool = True,
+           fwht_mode: str = "ms") -> torch.Tensor:
+        """Row t of (D, L*M) through design t -> (D, n)."""
+        return self._apply(beta, self.LM, self.n, self.n > self.LM,
+                           fwht_kernel, fwht_mode)
+
+    def az(self, z: torch.Tensor, fwht_kernel: bool = True,
+           fwht_mode: str = "ms") -> torch.Tensor:
+        """Row t of (D, n) through design t's adjoint -> (D, L*M)."""
+        return self._apply(z, self.n, self.LM, self.n <= self.LM,
+                           fwht_kernel, fwht_mode)
 
 
 def stack_designs(params: SparcParams, awgn_var: float, seed, count: int,

@@ -1,5 +1,5 @@
-"""Monte Carlo on one device: the SPARC BER sweep and the LDPC waterfall
-campaign.
+"""Monte Carlo on one device: the SPARC BER sweep, the concatenated
+LDPC-SPARC sweep point and the LDPC waterfall campaign.
 
 Counterpart of the single-device parts of
 `ldpc_sparc_tpu/parallel/montecarlo.py`:
@@ -22,9 +22,8 @@ Counterpart of the single-device parts of
   run give identical records.
 
 The streams are not the JAX package's (Threefry cannot be reproduced), so
-the two packages' counters agree statistically, not bit for bit. The
-concatenated Monte Carlo and the mesh fan-out are not ported yet
-(ROADMAP.md).
+the two packages' counters agree statistically, not bit for bit. The mesh
+fan-out is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,12 +34,13 @@ import math
 import numpy as np
 import torch
 
-from ..config import DecodeParams, LdpcParams, SparcParams
+from ..config import ConcatLengths, DecodeParams, LdpcParams, SparcParams
 from ..device import resolve_device
+from ..models.concat import ConcatCodec
 from ..models.ldpc import LdpcCode, get_code
 from ..models.sparc import awgn_channel, decode_batch
 from ..ops.bp import bp_decode
-from ..ops.transforms import stack_designs
+from ..ops.transforms import DesignStack, stack_designs
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
 
@@ -52,12 +52,12 @@ from ..utils import rng as rngmod
 def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
                     seed, n_trials: int, n_designs: int | None = None,
                     engine: str = "srht", fwht_mode: str = "ms",
-                    device=None) -> dict:
+                    device=None, fused_denoiser: bool | None = None) -> dict:
     """Run n_trials independent SPARC encode -> AWGN -> AMP -> count trials.
 
     Trial t: bits then noise from `root_generator(derive(seed, t))`, design
     (seed, t % n_designs). The trials of one design decode together, as one
-    `decode_batch` call.
+    `decode_batch` call. fused_denoiser: see `models.sparc.amp_decode`.
 
     Returns the counters bit_errs, bits, sec_errs, sections, frame_errs,
     frames, iters.
@@ -82,6 +82,7 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
         x = design.ab(beta0, fwht_mode=fwht_mode)
         y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
         beta, t_final = decode_batch(y, design, params, decode, awgn_var,
+                                     fused_denoiser=fused_denoiser,
                                      fwht_mode=fwht_mode)
         bit_errs = (bitops.msg_vector_to_bits(beta, M) != bits).sum(-1)
         sec_errs = (beta != beta0).reshape(-1, L, M).any(-1).sum(-1)
@@ -95,14 +96,15 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
 
 def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
                     n_trials: int, engine: str = "srht", fwht_mode: str = "ms",
-                    device=None) -> list[dict]:
+                    device=None, fused_denoiser: bool | None = None) -> list[dict]:
     """BER / SER / FER at each noise level (the performance_plots sweep);
     point i is seeded (seed, i)."""
     device = resolve_device(device)
     rows = []
     for i, v in enumerate(np.atleast_1d(awgn_vars)):
         c = sparc_mc_counts(params, decode, float(v), (seed, i), n_trials,
-                            engine=engine, fwht_mode=fwht_mode, device=device)
+                            engine=engine, fwht_mode=fwht_mode, device=device,
+                            fused_denoiser=fused_denoiser)
         rows.append({"awgn_var": float(v),
                      "ber": c["bit_errs"] / c["bits"],
                      "ser": c["sec_errs"] / c["sections"],
@@ -110,6 +112,84 @@ def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
                      "avg_iters": c["iters"] / c["frames"],
                      **c})
     return rows
+
+
+# --------------------------------------------------------------------------
+# Concatenated LDPC-SPARC Monte Carlo (the num_of_runs loop of
+# performance_plots_general.py:101-118, as one batch)
+# --------------------------------------------------------------------------
+
+def concat_mc_designs(codec: ConcatCodec, seed, n_trials: int,
+                      n_designs: int | None = None, device=None) -> DesignStack:
+    """The Monte Carlo's designs, one per trial: trial t's is
+    (seed, t % n_designs), n_designs = min(8, n_trials) by default. The
+    n_designs designs are built once and their leaves gathered per trial."""
+    device = resolve_device(device)
+    if n_designs is None:
+        n_designs = min(8, n_trials)
+    didx = torch.arange(n_trials, device=device) % n_designs
+    return codec.build_designs(seed, n_designs, device).for_trials(didx)
+
+
+def concat_mc_transmit(codec: ConcatCodec, designs: DesignStack, awgn_var: float,
+                       seed, fwht_kernel: bool = True):
+    """(user_bits (B, user_bits_len) int32, ys (B, n)) of the B = designs.D
+    trials: trial t draws its user bits, then its noise, from
+    `root_generator(derive(seed, t))`; the bits are LDPC-encoded, spread by
+    trial t's design and sent over AWGN."""
+    gens = [rngmod.root_generator(rngmod.derive(seed, t), designs.device)
+            for t in range(designs.D)]
+    user_bits = torch.stack([bitops.random_bits(g, codec.user_bits_len)
+                             for g in gens]).to(torch.int32)
+    _, beta0 = codec.message_vector(user_bits)
+    x = designs.ab(beta0 / codec.c_amp, fwht_kernel)
+    ys = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
+    return user_bits, ys
+
+
+def concat_mc_trial_errors(sparc_params: SparcParams, ldpc_params: LdpcParams,
+                           lengths: ConcatLengths, ldpc_protected: bool,
+                           decode_params: DecodeParams, awgn_var: float, seed,
+                           n_trials: int, decoder: str = "sequential",
+                           n_designs: int | None = None, device=None,
+                           fwht_kernel: bool = True,
+                           bp_kernel: bool = True) -> np.ndarray:
+    """Per-trial user-bit error counts of n_trials encode -> AWGN -> AMP + BP
+    trials, decoded as one `ConcatCodec.decode_batch` call.
+
+    Trial t: user bits then noise from `root_generator(derive(seed, t))`,
+    design (seed, t % n_designs), n_designs = min(8, n_trials) by default;
+    so entry t is a function of (seed, t) alone. Returns an (n_trials,)
+    int64 numpy array (divide by `ConcatCodec.user_bits_len` for the
+    per-run BERs, whose min and max are the reference's error bars).
+    """
+    device = resolve_device(device)
+    codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
+    designs = concat_mc_designs(codec, seed, n_trials, n_designs, device)
+    user_bits, ys = concat_mc_transmit(codec, designs, awgn_var, seed, fwht_kernel)
+    bits_out = codec.decode_batch(ys, designs, decode_params, decoder,
+                                  fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
+    return (user_bits != bits_out).sum(-1).cpu().numpy()
+
+
+def concat_ber_point(sparc_params: SparcParams, ldpc_params: LdpcParams,
+                     lengths: ConcatLengths, ldpc_protected: bool,
+                     decode_params: DecodeParams, awgn_var: float, seed,
+                     n_trials: int, decoder: str = "sequential", device=None,
+                     fwht_kernel: bool = True, bp_kernel: bool = True) -> dict:
+    """One sweep point: mean, min and max BER over n_trials (the aggregation
+    of performance_plots_general.py:120-126)."""
+    codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
+    errs = concat_mc_trial_errors(
+        sparc_params, ldpc_params, lengths, ldpc_protected, decode_params,
+        awgn_var, seed, n_trials, decoder, device=device,
+        fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
+    bers = errs / codec.user_bits_len
+    return {"ber": float(np.mean(bers)), "ber_min": float(np.min(bers)),
+            "ber_max": float(np.max(bers)),
+            "frame_errs": int(np.sum(errs > 0)), "frames": int(n_trials),
+            "bit_errs": int(np.sum(errs)),
+            "bits": int(n_trials * codec.user_bits_len)}
 
 
 # --------------------------------------------------------------------------

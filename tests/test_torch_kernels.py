@@ -521,3 +521,141 @@ def _check_sc_decode_launches(M, through_k2):
     assert wht_cuda.LAUNCHES_2MM - k2 == (products if through_k2 else 0)
     assert denoiser_cuda.LAUNCHES - k3 == t_max - 1
     assert torch.equal(beta, beta0)
+
+
+# ---- the concatenated decode through K1 + K4 -----------------------------------
+
+def _concat_z27(dev, snr, n_trials=8, seed=(3, 0)):
+    """(codec, designs, user_bits, ys) of the Monte Carlo's trials at 802.16
+    r=1/2 z=27, mults=4, M=2 (L=2592, n=2592; w=2^13, offset 1)."""
+    from ldpc_sparc_tpu_torch import ConcatCodec, param_calc
+    from ldpc_sparc_tpu_torch.parallel.montecarlo import (concat_mc_designs,
+                                                          concat_mc_transmit)
+    ldpc = LdpcParams("802.16", "1/2", 27)
+    _, _, L, lengths = param_calc(4, 1, ldpc, 0.5, 1.0, get_code("802.16", "1/2", 27).K)
+    codec = ConcatCodec(SparcParams(P=19.44, R=1.0, L=L, M=2), ldpc, lengths, True)
+    designs = concat_mc_designs(codec, seed, n_trials, device=dev)
+    user_bits, ys = concat_mc_transmit(codec, designs, 19.44 / snr, seed)
+    return codec, designs, user_bits, ys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder", ["sequential", "naive", "integrated"])
+@pytest.mark.parametrize("snr", [3.0, 6.0])
+def test_concat_decode_through_k1_k4_matches_plain(decoder, snr):
+    """`decode_batch` through K1 + K4 against fwht_kernel=False,
+    bp_kernel=False: K4 is bit-equal to the plain decode and K1 differs from
+    the plain chain in the order of its adds, so a trial the plain path
+    decodes without error decodes without error, and on a trial that does
+    not converge the counts differ by at most 1 % of its user bits. The
+    kernel path launches K1 once a product and K4 once a BP call; the plain
+    path launches neither."""
+    dev = _card()
+    codec, designs, user_bits, ys = _concat_z27(dev, snr)
+    dp = DecodeParams(t_max=25)
+    assert (designs.w, designs.offset, designs.D) == (1 << 13, 1, 8)
+    wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+    got = codec.decode_batch(ys, designs, dp, decoder)
+    torch.cuda.synchronize()
+    want_counts = (49, 1) if decoder == "sequential" else (50, 25)
+    assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == want_counts
+    assert denoiser_cuda.LAUNCHES == 0
+    plain = codec.decode_batch(ys, designs, dp, decoder, fwht_kernel=False,
+                               bp_kernel=False)
+    torch.cuda.synchronize()
+    assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == want_counts
+    e_k, e_p = (got != user_bits).sum(-1), (plain != user_bits).sum(-1)
+    assert bool((e_k[e_p == 0] == 0).all()), (e_k.tolist(), e_p.tolist())
+    assert int((e_k - e_p).abs().max()) <= 0.01 * codec.user_bits_len
+    if snr == 6.0 and decoder != "sequential":
+        assert int(e_k.sum()) == 0
+    # the batch against two of its trials decoded alone
+    for t in (0, 5):
+        one = codec.build_design(((3, 0), t), dev)
+        alone = codec.decode(ys[t], one, dp, decoder)
+        e = int((alone != user_bits[t]).sum())
+        assert abs(e - int(e_k[t])) <= 0.01 * codec.user_bits_len
+        if int(e_k[t]) == 0:
+            assert torch.equal(alone, got[t])
+
+
+@pytest.mark.cuda
+def test_concat_monte_carlo_on_the_card():
+    """`concat_mc_trial_errors` runs on the card by default, counts what the
+    batch decode counts and is a function of (seed, trial) there too."""
+    from ldpc_sparc_tpu_torch import concat_mc_trial_errors
+    dev = _card()
+    codec, designs, user_bits, ys = _concat_z27(dev, 6.0)
+    want = (codec.decode_batch(ys, designs, DecodeParams(t_max=25), "integrated")
+            != user_bits).sum(-1).cpu().numpy()
+    args = (codec.sparc, codec.ldpc_params, codec.lengths, True, DecodeParams(t_max=25),
+            19.44 / 6.0, (3, 0))
+    got = concat_mc_trial_errors(*args, 8, "integrated")
+    assert got.tolist() == want.tolist()
+    more = concat_mc_trial_errors(*args, 11, "integrated", n_designs=8)
+    assert more[:8].tolist() == got.tolist()
+
+
+# ---- the kernels against the JAX package at full shapes ------------------------
+
+def _flagship():
+    """tests/data/flagship.json and its arrays: two decodes of the JAX
+    package, written by tests/data/make_flagship_fixture.py."""
+    import json
+    from pathlib import Path
+    import numpy as np
+    data = Path(__file__).resolve().parent / "data"
+    meta = json.loads((data / "flagship.json").read_text())
+    return meta, lambda name: np.load(data / f"flagship_{name}.npy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, False])
+def test_amp_decode_through_k1_k3_matches_the_jax_fixture(fused):
+    """4 codewords at L=1024, M=512 (w = 2^19): the decisions the JAX package
+    made on the same y; t_final equal with the plain denoiser tail and within
+    1 with K3, whose psi is summed in another order."""
+    dev = _card()
+    meta, load = _flagship()
+    c = meta["amp"]
+    params = SparcParams(P=c["P"], R=c["R"], L=c["L"], M=c["M"])
+    design = SparcDesign.for_params(params, c["awgn_var"], c["design_seed"], device=dev)
+    y = torch.as_tensor(load("amp_y"), device=dev)
+    wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+    beta, t_final = sparc.decode_batch(y, design, params, DecodeParams(t_max=c["t_max"]),
+                                       c["awgn_var"], fused_denoiser=fused)
+    torch.cuda.synchronize()
+    assert wht_cuda.LAUNCHES == 2 * (c["t_max"] - 1) - 1
+    assert denoiser_cuda.LAUNCHES == (0 if fused is False else c["t_max"] - 1)
+    sections = beta.reshape(meta["n_codewords"], c["L"], c["M"]).argmax(-1).cpu()
+    assert torch.equal(sections, torch.as_tensor(load("amp_sections")).long())
+    want_t = torch.tensor(c["t_final"])
+    assert int((t_final.cpu() - want_t).abs().max()) <= (0 if fused is False else 1)
+
+
+@pytest.mark.cuda
+def test_concat_decode_through_k1_k4_matches_the_jax_fixture():
+    """4 trials of the z=150 `integrated` point: the user-bit decisions and
+    error counts the JAX package made on the same y and designs."""
+    import numpy as np
+    from ldpc_sparc_tpu_torch import ConcatCodec, param_calc
+    dev = _card()
+    meta, load = _flagship()
+    c, B = meta["concat"], meta["n_codewords"]
+    ldpc = LdpcParams(c["standard"], c["rate"], c["z"])
+    _, _, L, lengths = param_calc(c["mults"], c["logM"], ldpc, ldpc.rate_float,
+                                  c["R_sparc"], get_code(c["standard"], c["rate"], c["z"]).K)
+    codec = ConcatCodec(SparcParams(P=c["P"], R=c["R_sparc"], L=L, M=2 ** c["logM"]),
+                        ldpc, lengths, True)
+    assert (L, codec.n, codec.user_bits_len) == (c["L"], c["n"], c["user_bits_len"])
+    designs = codec.build_designs(tuple(c["seed"]), B, dev)
+    bits = {k: torch.as_tensor(np.unpackbits(load(k), axis=-1)[:, :codec.user_bits_len]
+                               .astype(np.int32), device=dev)
+            for k in ("concat_user_bits", "concat_bits_out")}
+    wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = 0
+    got = codec.decode_batch(torch.as_tensor(load("concat_y"), device=dev), designs,
+                             DecodeParams(t_max=c["t_max"]), c["decoder"])
+    torch.cuda.synchronize()
+    assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == (2 * c["t_max"], c["t_max"])
+    assert torch.equal(got, bits["concat_bits_out"])
+    assert (got != bits["concat_user_bits"]).sum(-1).tolist() == c["errors"]

@@ -273,3 +273,111 @@ def test_cli_without_device_needs_a_card(tmp_path):
         cli.main(argv)
     assert "no CUDA device" in str(err.value) and "--device cpu" in str(err.value)
     assert not (tmp_path / "sparc_sweep.jsonl").exists()
+
+
+# ---- fused_denoiser reaches amp_decode from every entry point -----------------
+
+# tests/test_torch_families.py's "sc-m32": the fused tail takes M = 32, and
+# `amp_decode(fused_denoiser=False)` is held equal to the JAX decode there
+SC32 = dict(P=15.0, R=1.0, L=256, M=32, spatially_coupled=True, omega=3, Lambda=8)
+
+
+def _sim_inputs(params, var, seed):
+    """The design, beta0 and y that `sparc_sim(params, ., var, seed)` draws."""
+    from ldpc_sparc_tpu_torch.models.sparc import design_for_params
+    design = design_for_params(params, var, seed, device="cpu")
+    bits = bitops.random_bits(
+        rngmod.root_generator(rngmod.derive(seed, rngmod.BITS), "cpu"), params.bit_len)
+    beta0 = bitops.bits_to_msg_vector(bits, params.M)
+    y = awgn_channel(design.ab(beta0), var, rngmod.root_generator(
+        rngmod.derive(seed, rngmod.CHANNEL), "cpu"))
+    return design, beta0, y
+
+
+@pytest.mark.parametrize("fused", [False, None])
+def test_sparc_sim_passes_fused_denoiser_to_amp_decode(fused):
+    from ldpc_sparc_tpu_torch.models import sparc as tsparc
+    params, decode, var, seed = SparcParams(**SC32), DecodeParams(t_max=20), 1.0, 3
+    sim = tsparc.sparc_sim(params, decode, var, seed, device="cpu", fused_denoiser=fused)
+    design, beta0, y = _sim_inputs(params, var, seed)
+    want = tsparc.amp_decode(y, design, params, decode, var, beta0, fused_denoiser=fused)
+    assert int(sim["t_final"]) == int(want.t_final)
+    assert torch.equal(sim["nmse"], want.nmse)
+    err = (want.beta != beta0).reshape(params.L, -1).any(-1)
+    np.testing.assert_array_equal(sim["loc_of_sec_errs"], np.flatnonzero(err.numpy()))
+    # the two tails sum psi in other orders: the trajectories tell them apart
+    other = tsparc.amp_decode(y, design, params, decode, var, beta0,
+                              fused_denoiser=None if fused is False else False)
+    assert not torch.equal(other.nmse, want.nmse)
+    bits_out, res, _ = tsparc.sparc_decode(y, design, params, decode, var, beta0,
+                                           fused_denoiser=fused)
+    assert torch.equal(res.nmse, want.nmse)
+    assert torch.equal(bits_out, bitops.msg_vector_to_bits(want.beta, params.M))
+
+
+def test_mc_counts_pass_fused_denoiser_to_amp_decode():
+    """`iters` is the sum of the trials' t_final under the same tail."""
+    params, decode, var, seed, n = SparcParams(**SC32), DecodeParams(t_max=20), 1.0, 3, 3
+    designs = stack_designs(params, var, seed, n, device="cpu")
+    want = {False: 0, None: 0}
+    for t in range(n):
+        gen = rngmod.root_generator(rngmod.derive(seed, t), "cpu")
+        bits = bitops.random_bits(gen, params.bit_len)[None]
+        y = awgn_channel(designs[t].ab(bitops.bits_to_msg_vector(bits, params.M))[0],
+                         var, gen)[None]
+        for fused in want:
+            want[fused] += int(decode_batch(y, designs[t], params, decode, var,
+                                            fused_denoiser=fused)[1].sum())
+    for fused, iters in want.items():
+        got = tmc.sparc_mc_counts(params, decode, var, seed, n, device="cpu",
+                                  fused_denoiser=fused)
+        assert got["iters"] == iters and got["bit_errs"] == 0
+
+
+def test_every_entry_point_hands_fused_denoiser_down(monkeypatch, tmp_path):
+    """sparc_sim, sparc_decode, sparc_mc_counts, sparc_ber_sweep and the CLI
+    each reach `amp_decode` with the caller's choice."""
+    from ldpc_sparc_tpu_torch.models import sparc as tsparc
+    seen = []
+    real = tsparc.amp_decode
+
+    def recording(*a, **k):
+        seen.append(k.get("fused_denoiser", "absent"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tsparc, "amp_decode", recording)
+    params, decode = SparcParams(**SC), DecodeParams(t_max=5)
+    design, beta0, y = _sim_inputs(params, 1.0, 0)
+    calls = {
+        "sparc_sim": lambda f: tsparc.sparc_sim(params, decode, 1.0, 0, device="cpu",
+                                                fused_denoiser=f),
+        "sparc_decode": lambda f: tsparc.sparc_decode(y, design, params, decode, 1.0,
+                                                      fused_denoiser=f),
+        "sparc_mc_counts": lambda f: tmc.sparc_mc_counts(
+            params, decode, 1.0, 0, 2, n_designs=1, device="cpu", fused_denoiser=f),
+        "sparc_ber_sweep": lambda f: tmc.sparc_ber_sweep(
+            params, decode, [1.0], 0, 2, device="cpu", fused_denoiser=f),
+    }
+    for name, call in calls.items():
+        for f in (False, None):
+            seen.clear()
+            call(f)
+            assert seen and all(s is f for s in seen), (name, f, seen)
+    for flags, want in (([], None), (["--no-fused-denoiser"], False)):
+        seen.clear()
+        cli.main(SWEEP + flags + ["--out", str(tmp_path / f"o{len(flags)}")])
+        assert seen and all(s is want for s in seen), (flags, seen)
+
+
+def test_no_fused_denoiser_joins_the_resume_key_only_when_given():
+    args = _parse(SWEEP)
+    params = cli.sparc_params_from_args(args)
+    base = cli.sweep_config_key(args, params)
+    assert args.no_fused_denoiser is False
+    off = _parse(SWEEP + ["--no-fused-denoiser"])
+    assert off.no_fused_denoiser is True
+    assert cli.sweep_config_key(off, params) != base
+    both = _parse(SWEEP + ["--no-fused-denoiser", "--fwht-mode", "2mm"])
+    assert len({base, cli.sweep_config_key(off, params),
+                cli.sweep_config_key(both, params),
+                cli.sweep_config_key(_parse(SWEEP + ["--fwht-mode", "2mm"]), params)}) == 4
