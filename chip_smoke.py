@@ -31,6 +31,17 @@ products), and drives and times the paths `bench.py` times:
     `concat_mc_trial_errors` timed with its three parts, and `concat-sweep`
     at linear SNR 2.0 and 4.286, resumed from its store and held to the rows
     of `docs/artifacts/concat_sweep.jsonl` (phase 13).
+  * slice E: the complex K=4 PSK code of `docs/artifacts/modulated_sweep.json`
+    (L=2048, M=8, R=2.6, P=15, t_max 25; n = 3,938 complex channel uses,
+    LM = 2^14 at offset 0), 128 codewords at SNR 9 and 15, decoded through
+    K1 on stacked real and imaginary rows (256 rows of 2^14) against the
+    plain path, and the real K=2 code at the headline's widths (L=1024,
+    M=512, 64 codewords, awgn_var 1) through K1 and through K2 (phase 14);
+    `sparc-sweep --modulated` with both design engines held to
+    `modulated_sweep.json` and `oracle_parity_mod_dft.json`, then resumed,
+    and the K=1 sweeps held to `flagship_sweep.json`, `pa_sweep.json` and
+    `sc_sweep.json` (phase 15); the campaign's per-point counter held to
+    `campaign_tpu.json` (phase 16).
 
 Each phase prints one line. The line before the last is a JSON
 summary of the kernels, each with its time, its plain version's, the least
@@ -139,6 +150,23 @@ CONCAT_COUNT_TOL = 0.01
 CONCAT_SWEEP_SNRS, CONCAT_SWEEP_RUNS, CONCAT_BER_TOL = (2.0, 4.286), 20, 0.03
 CONCAT_SWEEP_DECODERS = ("amp_only", "sequential", "naive", "integrated")
 CONCAT_ARTIFACT = "docs/artifacts/concat_sweep.jsonl"
+
+# slice E: the K=4 PSK code of docs/artifacts/modulated_sweep.json (the
+# reference's demo cell 14), and the real K=2 code at the headline's widths
+MOD = dict(P=15.0, R=2.6, L=2048, M=8, modulated=True, K=4, is_complex=True)
+MOD_T_MAX, MOD_BATCH, MOD_REPS, MOD_SNRS = 25, 128, 3, (9.0, 15.0)
+MOD_SRHT = (2 * MOD_BATCH, 1, 3938, 14)     # K1's (rows, E, k, log2 w) on this path
+K2MOD = dict(P=15.0, R=1.0, L=1024, M=512, modulated=True, K=2)
+K2MOD_BATCH, K2MOD_VAR = 64, 1.0
+K2MOD_SRHT = (K2MOD_BATCH, 1, 10240, 19)
+# phase 15: sparc-sweep --modulated at rows of the artifacts, their counts
+MOD_SWEEP = ["sparc-sweep", "--P", "15", "--R", "2.6", "--L", "2048", "--M", "8",
+             "--modulated", "--K", "4", "--t-max", str(MOD_T_MAX), "--num-snrs", "1",
+             "--device", "cuda"]
+MOD_SWEEP_ROWS = {"srht": ("modulated_sweep.json", (6.5, 7.5, 9.0, 15.0), 128,
+                           ("fer", "ser", "ler", "ver")),
+                  "dft": ("oracle_parity_mod_dft.json", (8.0, 9.0), 256, ("fer", "ser"))}
+MOD_SE_T_MAX, MOD_SE_SAMPLES = 300, 4000
 
 
 def phase(n, text):
@@ -467,18 +495,19 @@ def slice_b(dev, card):
             "library_ms": None}, lxor_us
 
 
-def sc_inputs(design, params, batch, dev):
-    """(beta0, y) of `batch` random SC codewords at SC_AWGN: bits and noise
-    from a CPU generator seeded SEED (a CPU run reproduces them), the
-    codeword through the plain float32 product."""
+def sc_inputs(design, params, batch, dev, awgn_var=SC_AWGN):
+    """(beta0, y) of `batch` random codewords of a real code at awgn_var
+    (the SC code's by default): bits and noise from a CPU generator seeded
+    SEED (a CPU run reproduces them), the codeword through the plain float32
+    product."""
     import torch
     from ldpc_sparc_tpu_torch.utils import bits as bitops
     gen = torch.Generator().manual_seed(SEED)
     bits = torch.randint(0, 2, (batch, params.bit_len), generator=gen).bool()
     noise = torch.randn(batch, design.n, generator=gen)
-    beta0 = bitops.bits_to_msg_vector(bits.to(dev), params.M)
+    beta0 = bitops.bits_to_msg_vector(bits.to(dev), params.M, params.K)
     x = design.ab(beta0, fwht_kernel=False)
-    return beta0, x + SC_AWGN ** 0.5 * noise.to(dev)
+    return beta0, x + awgn_var ** 0.5 * noise.to(dev)
 
 
 def slice_c(dev, card, errs):
@@ -1036,6 +1065,274 @@ def slice_d(dev, card, lxor_us):
              "launches": counts[CONCAT_DECODER][1], "max_abs_err": k4_err, **k4_first})
 
 
+def converged_equal(got, plain, t_max):
+    """The decode gate of slice E: decisions and t_final equal to the plain
+    path's on every codeword whose plain decode stopped before the cap.
+    Returns the number of such codewords (fails if none)."""
+    import torch
+    (b_k, t_k), (b_p, t_p) = got, plain
+    conv = t_p < t_max - 1
+    if not bool(conv.any()):
+        raise AssertionError("no codeword converges on the plain path")
+    if not (torch.equal(b_k[conv], b_p[conv]) and torch.equal(t_k[conv], t_p[conv])):
+        n = int((b_k[conv] != b_p[conv]).reshape(int(conv.sum()), -1).any(-1).sum())
+        raise AssertionError(f"decisions or t_final differ on {n} converged codewords")
+    return int(conv.sum())
+
+
+def slice_e(dev, card):
+    """Phase 14; returns the entries of K1 at the K=4 and K=2 shapes and of
+    K2 at the K=2 shape for the kernels line."""
+    import torch
+    from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams
+    from ldpc_sparc_tpu_torch.models.sparc import awgn_channel, decode_batch
+    from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.utils import bits as bitops
+
+    params, decode = SparcParams(**MOD), DecodeParams(t_max=MOD_T_MAX)
+    it = MOD_T_MAX - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # K1 at this path's shape against its plain version, then timed
+    design = SparcDesign.for_params(params, MOD["P"] / MOD_SNRS[0], seed=SEED, device=dev)
+    shape = (2 * MOD_BATCH, design.E, design.idx.shape[1], design.w.bit_length() - 1)
+    if (shape, design.offset, design.n, design.tall) != (MOD_SRHT, 0, 3938, False):
+        raise AssertionError(f"the K=4 design is {shape} offset {design.offset}")
+    k1_text, k1_err = check_fused_srht(MOD_SRHT, design._idx32, design.signs, gen, dev)
+    k1_t = time_k1(MOD_SRHT, design._idx32, design.signs, ("block",), gen, dev)
+    rows, E, k, log_w = MOD_SRHT
+    k1_bound = least_ms(4 * ((1 << log_w) + k) * (rows + E), rows * (1 << log_w) * log_w)
+
+    # the main path at two SNRs: encode and decode through K1, then plain
+    parts, launches, ys = [], {}, {}
+    for snr in MOD_SNRS:
+        var = MOD["P"] / snr
+        design = SparcDesign.for_params(params, var, seed=SEED, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        bits = bitops.random_bits(g, MOD_BATCH * params.bit_len).reshape(MOD_BATCH, -1)
+        beta0 = bitops.bits_to_msg_vector(bits, params.M, params.K)
+        y = awgn_channel(design.ab(beta0), var, g)
+        got = decode_batch(y, design, params, decode, var)
+        torch.cuda.synchronize()
+        launches[snr] = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES)
+        if launches[snr] != (2 * it, 0, 0):
+            raise AssertionError(f"K=4 path launches (K1, K2, K3) {launches[snr]}, "
+                                 f"expected {(2 * it, 0, 0)}")
+        if got[0].shape != beta0.shape or got[0].dtype != torch.complex64 \
+                or not bool(torch.isfinite(torch.view_as_real(y)).all()):
+            raise AssertionError("K=4 decode: wrong shape or type, or not finite")
+        plain = decode_batch(y, design, params, decode, var, fwht_kernel=False)
+        torch.cuda.synchronize()
+        n_conv = converged_equal(got, plain, MOD_T_MAX)
+        bits_out = bitops.msg_vector_to_bits(got[0], params.M, params.K)
+        fe = int((bits_out != bits).any(-1).sum())
+        parts.append(f"SNR {snr:g}: {n_conv} of {MOD_BATCH} converge on the plain path, "
+                     f"decisions and t_final equal there; frame errors {fe}, t_final "
+                     f"{int(got[1].min())}-{int(got[1].max())}, launches (K1, K2, K3) "
+                     f"{launches[snr]}")
+        ys[snr] = (design, y, var)
+
+    design, y, var = ys[MOD_SNRS[-1]]
+
+    def window(kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(MOD_REPS):
+            decode_batch(y, design, params, decode, var, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    paths = {"K1": {}, "plain": dict(fwht_kernel=False)}
+    best = {k: float("inf") for k in paths}
+    for i in range(4):   # alternate: K1, plain, plain, K1, ...
+        for name in (list(paths) if i % 2 == 0 else list(paths)[::-1]):
+            best[name] = min(best[name], window(paths[name]))
+    rate = {k: MOD_BATCH * it * MOD_REPS / v for k, v in best.items()}
+    del ys, y
+
+    # real K=2 at the headline's widths: K1, K2 ("2mm") and the plain path
+    p2 = SparcParams(**K2MOD)
+    d2 = SparcDesign.for_params(p2, K2MOD_VAR, seed=SEED, device=dev)
+    shape2 = (K2MOD_BATCH, d2.E, d2.idx.shape[1], d2.w.bit_length() - 1)
+    if (shape2, d2.offset, d2.tall) != (K2MOD_SRHT, 0, False):
+        raise AssertionError(f"the K=2 design is {shape2} offset {d2.offset}")
+    beta0, y2 = sc_inputs(d2, p2, K2MOD_BATCH, dev, K2MOD_VAR)
+    out2, counts2 = {}, {}
+    for name, kw in (("K1", {}), ("K2", dict(fwht_mode="2mm")),
+                     ("plain", dict(fwht_kernel=False))):
+        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        out2[name] = decode_batch(y2, d2, p2, decode, K2MOD_VAR, **kw)
+        torch.cuda.synchronize()
+        counts2[name] = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES)
+    want2 = {"K1": (2 * it - 1, 0, 0), "K2": (0, 2 * it - 1, 0), "plain": (0, 0, 0)}
+    if counts2 != want2:
+        raise AssertionError(f"K=2 launches (K1, K2, K3) {counts2}, expected {want2}")
+    conv2 = {n: converged_equal(out2[n], out2["plain"], MOD_T_MAX) for n in ("K1", "K2")}
+    sec2 = {n: int((b != beta0).reshape(K2MOD_BATCH, p2.L, -1).any(-1).sum())
+            for n, (b, _) in out2.items()}
+    del out2, y2, beta0
+    k1_t2 = time_k1(K2MOD_SRHT, d2._idx32, d2.signs, ("cluster",), gen, dev)
+    k1_text2, k1_err2 = check_fused_srht(K2MOD_SRHT, d2._idx32, d2.signs, gen, dev)
+    rows2, E2, k2_, log_w2 = K2MOD_SRHT
+    w2 = 1 << log_w2
+    k1_bound2 = least_ms(4 * (w2 + k2_) * (rows2 + E2), rows2 * w2 * log_w2)
+    x = torch.randn(rows2, w2, generator=gen, device=dev)
+    k2_err, k2_ms = 0.0, {}
+    for pre in (True, False):
+        got = wht_cuda.fwht_signed_2mm(x, d2.signs, pre)
+        want = wht_cuda.fwht_signed_2mm_ref(x, d2.signs, pre)
+        torch.cuda.synchronize()
+        rel = float((got - want).norm() / want.norm())
+        if not rel <= K2_REL_BOUND:
+            raise AssertionError(f"K2 at ({rows2}, 2^{log_w2}) pre={pre}: relative "
+                                 f"error {rel} > {K2_REL_BOUND}")
+        k2_err = max(k2_err, float((got - want).abs().max()))
+        del got, want
+        k2_ms[pre] = (cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, d2.signs, pre)),
+                      cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, d2.signs, pre),
+                              reps=3, warmup=1))
+    a, b = wht_cuda.split_ab(w2)
+    ha = wht_cuda.hadamard_factor(a, torch.bfloat16, dev)
+    hb = wht_cuda.hadamard_factor(b, torch.bfloat16, dev)
+    xb = x.reshape(rows2, a, b).to(torch.bfloat16)
+    k2_lib = cuda_ms(lambda: ha @ (xb @ hb))
+    del x, xb
+    k2_bound = least_ms(4 * (2 * rows2 * w2 + E2 * w2), 2 * rows2 * (a * b * b + a * a * b),
+                        BF16_FLOPS)
+
+    phase(14, f"modulated decode K=4 PSK L={MOD['L']} M={MOD['M']} R={MOD['R']} "
+              f"P={MOD['P']} t_max {MOD_T_MAX}, {MOD_BATCH} codewords (n={design.n} "
+              f"complex, LM={design.LM}, w=2^{design.w.bit_length() - 1} offset 0) on "
+              f"{card}: " + "; ".join(parts) + f" | modulated_amp_iterations_per_s at SNR "
+              f"{MOD_SNRS[-1]:g}: K1 path {rate['K1']:.1f} (best window {best['K1']:.4f} "
+              f"s), plain path {rate['plain']:.1f} (best window {best['plain']:.4f} s) | "
+              f"K1 at {MOD_SRHT}: {k1_text}; ms: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in k1_t.items())
+              + f"; bound {k1_bound['bound_ms']:.5f} ms by {k1_bound['bound_by']} | real "
+              f"K=2 L={K2MOD['L']} M={K2MOD['M']} R={K2MOD['R']}, {K2MOD_BATCH} codewords, "
+              f"awgn_var {K2MOD_VAR}: launches (K1, K2, K3) {counts2}, converged and equal "
+              f"to plain {conv2}, section errors {sec2} | K1 at {K2MOD_SRHT}: {k1_text2}; "
+              f"ms: " + ", ".join(f"{k} {v:.5f}" for k, v in k1_t2.items())
+              + f"; bound {k1_bound2['bound_ms']:.5f} ms by {k1_bound2['bound_by']} | K2 at "
+              f"({rows2}, 2^{log_w2}) pre / post {k2_ms[True][0]:.4f} / "
+              f"{k2_ms[False][0]:.4f} ms (plain {k2_ms[True][1]:.4f} / "
+              f"{k2_ms[False][1]:.4f} ms; bound {k2_bound['bound_ms']:.4f} ms by "
+              f"{k2_bound['bound_by']}; cuBLAS bf16 pair {k2_lib:.4f} ms)")
+
+    common = {"route": "cuda", "source": "ldpc_sparc_tpu_torch/csrc/fwht_signed.cu",
+              "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:138", "library_ms": None}
+    return [{"name": "fwht_signed (modulated K=4 decode)", **common,
+             "launches": launches[MOD_SNRS[0]][0], "max_abs_err": k1_err,
+             "ms": (k1_t["scatter"] + k1_t["gather"]) / 2,
+             "plain_ms": (k1_t["scatter plain"] + k1_t["gather plain"]) / 2, **k1_bound},
+            {"name": "fwht_signed (K=2 decode)", **common,
+             "launches": counts2["K1"][0], "max_abs_err": k1_err2,
+             "ms": (k1_t2["scatter"] + k1_t2["gather"]) / 2,
+             "plain_ms": (k1_t2["scatter plain"] + k1_t2["gather plain"]) / 2, **k1_bound2},
+            {"name": "fwht_signed_2mm (K=2 decode)", "route": "cuda",
+             "source": "ldpc_sparc_tpu_torch/csrc/fwht_2mm.cu",
+             "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:103",
+             "launches": counts2["K2"][1], "max_abs_err": k2_err,
+             "ms": (k2_ms[True][0] + k2_ms[False][0]) / 2,
+             "plain_ms": (k2_ms[True][1] + k2_ms[False][1]) / 2, **k2_bound,
+             "library_ms": k2_lib}]
+
+
+def sweeps_and_campaign(dev, card):
+    """Phases 15 and 16: the Monte Carlos held to the committed artifacts."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import torch
+    from ldpc_sparc_tpu_torch import artifacts, cli, sparc_se
+    from ldpc_sparc_tpu_torch.ops import bp_cuda
+
+    # -- 15: sparc-sweep --modulated, both engines, resumed; the K=1 sweeps ------
+    def sweep(out, engine, snr, trials):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            [row] = cli.main(MOD_SWEEP + ["--snr-start", str(snr), "--snr-stop", str(snr),
+                                          "--trials", str(trials), "--design-engine",
+                                          engine, "--out", out])
+        return row, buf.getvalue()
+
+    table, se_text, times = [], [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for again in (False, True):
+            t0 = time.perf_counter()
+            for engine, (name, snrs, trials, keys) in MOD_SWEEP_ROWS.items():
+                rows = []
+                for snr in snrs:
+                    row, printed = sweep(tmp, engine, snr, trials)
+                    if again != (not printed.strip()):
+                        raise AssertionError(f"sparc-sweep {engine} SNR {snr}: printed "
+                                             f"{printed!r} on {'the rerun' if again else 'the first run'}")
+                    rows.append(row)
+                if again:
+                    continue
+                for c in artifacts.compare_sweep(name, rows, keys):
+                    if not c["ok"]:
+                        raise AssertionError(f"sparc-sweep {engine} against {name}: {c}")
+                    table.append(f"{engine} SNR {c['snr']:g} {c['key']} {c['port']:.6g} "
+                                 f"(artifact {c['artifact']:.6g}, bound {c['bound']:.3g})")
+            times[again] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "sparc_sweep.jsonl")) as f:
+            n_lines = sum(1 for ln in f if ln.strip())
+    if n_lines != sum(len(v[1]) for v in MOD_SWEEP_ROWS.values()):
+        raise AssertionError(f"the sweep store holds {n_lines} rows")
+    params, _, art = artifacts.sweep_config("modulated_sweep.json")
+    for r in art:
+        if r["snr"] in MOD_SWEEP_ROWS["srht"][1]:
+            psi, _ = sparc_se(r["awgn_var"], params, MOD_SE_T_MAX, MOD_SE_SAMPLES,
+                              seed=SEED, device=dev)
+            se_text.append(f"SNR {r['snr']:g} {float(psi[-1].mean()):.4g} (artifact "
+                           f"{r['se_psi_final']:.4g})")
+    k1_table, t0 = [], time.perf_counter()
+    for name, snrs in artifacts.K1_SWEEP_ROWS.items():
+        rows = artifacts.run_sweep_rows(name, snrs, device=dev)
+        for c in artifacts.compare_sweep(name, rows):
+            if not c["ok"]:
+                raise AssertionError(f"sparc_ber_sweep against {name}: {c}")
+            k1_table.append(f"{name.split('_')[0]} SNR {c['snr']:g} {c['key']} "
+                            f"{c['port']:.6g} ({c['artifact']:.6g}, {c['bound']:.3g})")
+    dt_k1 = time.perf_counter() - t0
+    phase(15, f"sparc-sweep --modulated --K 4 --L 2048 --M 8 --R 2.6 --t-max {MOD_T_MAX} on "
+              f"{card}: srht at SNR {MOD_SWEEP_ROWS['srht'][1]} x "
+              f"{MOD_SWEEP_ROWS['srht'][2]} trials, dft at {MOD_SWEEP_ROWS['dft'][1]} x "
+              f"{MOD_SWEEP_ROWS['dft'][2]}: {times[False]:.1f} s, rerun into the same --out "
+              f"{times[True]:.1f} s decoding nothing | within the two-sample bound of "
+              f"modulated_sweep.json and oracle_parity_mod_dft.json's jax side: "
+              + "; ".join(table) + " | sparc_se final psi: " + ", ".join(se_text)
+              + f" | sparc_ber_sweep at the K=1 artifacts' configurations and counts "
+              f"({dt_k1:.1f} s), port (artifact, bound): " + "; ".join(k1_table))
+
+    # -- 16: the campaign's per-point counter against campaign_tpu.json ----------
+    cfg = artifacts.campaign_config(artifacts.CAMPAIGN_SIM_ID)
+    parts = []
+    for snr in artifacts.CAMPAIGN_SNRS:
+        bp_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rec = artifacts.run_campaign_point(cfg, snr, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if bp_cuda.LAUNCHES != rec[5] // cfg["protocol"]["batch"] or \
+                rec[6] < cfg["protocol"]["min_errors"]:
+            raise AssertionError(f"campaign point {rec}: {bp_cuda.LAUNCHES} K4 launches")
+        checks = artifacts.compare_campaign_point(cfg, rec)
+        if len(checks) < 2 or not all(c["ok"] for c in checks):
+            raise AssertionError(f"campaign point at {snr} dB: {checks}")
+        parts.append(f"{snr:.3f} dB: BER {rec[8] / rec[7]:.4e} ({rec[6]} block errors in "
+                     f"{rec[5]} blocks, {bp_cuda.LAUNCHES} K4 launches, {dt:.2f} s) against "
+                     + ", ".join(f"{c['against']} {c['snr']:.3f} dB {c['artifact']:.4e} "
+                                 f"(bound {c['bound']:.3g})" for c in checks))
+    phase(16, f"campaign {cfg['standard']} r={cfg['rate']} z={cfg['z']} {cfg['ptype']} "
+              f"(campaign_tpu.json sim_id {cfg['sim_id']}), batch "
+              f"{cfg['protocol']['batch']}, {cfg['protocol']['dectype']}, <= "
+              f"{cfg['protocol']['max_iters']} iterations, >= "
+              f"{cfg['protocol']['min_errors']} block errors, on {card}: " + "; ".join(parts))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1254,6 +1551,8 @@ def main():
     k4, lxor_us = slice_b(dev, card)
     k2 = slice_c(dev, card, errs)
     k1_d, k4_d = slice_d(dev, card, lxor_us)
+    slice_e_kernels = slice_e(dev, card)
+    sweeps_and_campaign(dev, card)
     # K1 as the main path launches it: the two fused products, averaged. Each
     # reads or writes the (rows, w) side once, the (rows, k) side once, the
     # (E, w) signs and the (E, k) int32 indices; w log2(w) adds a row.
@@ -1281,7 +1580,7 @@ def main():
          "library_ms": None},
     ]
     kernels.insert(1, k2)
-    kernels += [k4, k1_d, k4_d]
+    kernels += [k4, k1_d, k4_d, *slice_e_kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

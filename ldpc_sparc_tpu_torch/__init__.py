@@ -19,16 +19,17 @@ against; the two share no code, and this package imports neither JAX nor
   cli.py     `python -m ldpc_sparc_tpu_torch.cli sparc-sweep | concat-sweep`
   parity.py  carries a JAX-built design into the port
 
-Ported so far: the SPARC AMP decode of real, K=1 codes with the SRHT design
-(plain, power-allocated and spatially coupled), state evolution, the SPARC
-Monte Carlo and its sweep CLI; LDPC BP, the code library and the waterfall
+Ported so far: the SPARC AMP decode of every family (plain,
+power-allocated, spatially coupled), real or complex, unmodulated or K-PSK,
+with the SRHT design or, for complex plain codes, the DFT design; state
+evolution, the SPARC Monte Carlo and its sweep CLI; LDPC BP, the code library and the waterfall
 campaign; the AMP <-> BP bridges, the concatenated codec, its Monte Carlo
 and `concat-sweep`.
 """
 
 from .config import (SparcParams, DecodeParams, LdpcParams, ConcatLengths,
                      param_calc, param_calc_semi_protected)
-from .ops.transforms import SparcDesign, DesignStack
+from .ops.transforms import SparcDesign, DesignStack, DftDesign
 from .ops.bp import bp_decode
 from .models.sparc import sparc_sim, amp_decode, awgn_channel
 from .models.state_evolution import sparc_se

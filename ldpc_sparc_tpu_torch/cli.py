@@ -5,17 +5,19 @@ concatenated LDPC-SPARC decoder sweep.
     python -m ldpc_sparc_tpu_torch.cli concat-sweep --z 150 --runs 20 ...
 
 Counterparts of `ldpc_sparc_tpu/cli.py`'s `sparc-sweep` and `concat-sweep`,
-with their flags less `--platform` (here `--device`) and the complex `dft`
-design engine, plus `--fwht-mode {ms,2mm}` and `--no-fused-denoiser` on
-`sparc-sweep`. Rows go to the resumable JSONL stores
-`<out>/sparc_sweep.jsonl` and `<out>/concat_sweep[_semi].jsonl` under the
-JAX CLI's keys, so a sweep rerun into the same `--out` returns the stored
-rows instead of decoding them again, whichever package wrote them.
-`fwht_mode` and the denoiser tail join the SPARC configuration key only when
-they are not the defaults: K2's bf16 operands and the plain tail's stop are
-different computations. `concat-sweep` writes no figure yet (the plotting
-functions are not ported). The other subcommands are not ported yet
-(ROADMAP.md).
+with their flags less `--platform` (here `--device`), plus
+`--fwht-mode {ms,2mm}` and `--no-fused-denoiser` on `sparc-sweep`, which
+takes every family: `--modulated --K 2|4|8` (K > 2 is complex),
+`--complex`, and `--design-engine dft` for complex plain codes. Rows go to
+the resumable JSONL stores `<out>/sparc_sweep.jsonl` and
+`<out>/concat_sweep[_semi].jsonl` under the JAX CLI's keys, so a sweep
+rerun into the same `--out` returns the stored rows instead of decoding
+them again, whichever package wrote them. The design engine, `fwht_mode`
+and the denoiser tail join the SPARC configuration key only when they are
+not the defaults: another ensemble, K2's bf16 operands and the plain
+tail's stop are different computations. `concat-sweep` writes no figure
+yet (the plotting functions are not ported). The other subcommands are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -99,8 +101,10 @@ def cmd_sparc_sweep(args):
         row["snr"] = float(snr)
         store.append(key, row)
         rows.append({"key": key, **row})
-        print(json.dumps({"snr": float(snr), "ber": row["ber"], "ser": row["ser"]}),
-              flush=True)
+        line = {"snr": float(snr), "ber": row["ber"], "ser": row["ser"]}
+        if "ler" in row:
+            line.update(ler=row["ler"], ver=row["ver"])
+        print(json.dumps(line), flush=True)
     return rows
 
 
@@ -223,13 +227,13 @@ def main(argv=None):
     p.add_argument("--B", type=int, default=32)
     p.add_argument("--R-PA-ratio", type=float, default=1.0)
     p.add_argument("--modulated", action="store_true",
-                   help="K-PSK modulated SPARC (not ported: raises)")
+                   help="K-PSK modulated SPARC (K > 2 implies --complex)")
     p.add_argument("--K", type=int, default=4)
     p.add_argument("--complex", action="store_true",
-                   help="complex design (not ported: raises)")
-    p.add_argument("--design-engine", choices=("srht",), default="srht",
-                   help="design ensemble: the real SRHT (the complex 'dft' "
-                        "engine is not ported)")
+                   help="complex SPARC (complex channel)")
+    p.add_argument("--design-engine", choices=("srht", "dft"), default="srht",
+                   help="design ensemble: the real SRHT (every family) or the "
+                        "reference's complex subsampled DFT (complex plain codes)")
     p.add_argument("--fwht-mode", choices=("ms", "2mm"), default="ms",
                    help="design-product transform: ms = K1 (float32), "
                         "2mm = K2 (bf16 operands, two tensor-core products)")

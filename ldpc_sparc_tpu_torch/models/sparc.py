@@ -1,18 +1,22 @@
 """Pure-SPARC codec: encoder, AWGN channel and the AMP decoder, in PyTorch.
 
-Counterpart of `ldpc_sparc_tpu/models/sparc.py` for real, unmodulated
-codes with the SRHT design engine. The JAX decoder vmaps a `lax.scan`; here
-the batch of codewords is a leading dimension and the iterations are a
+Counterpart of `ldpc_sparc_tpu/models/sparc.py`: every family (plain,
+power-allocated, spatially coupled), real or complex, unmodulated (K=1) or
+K-PSK modulated (K = 2, 4, 8, ...), with the SRHT design engine or, for
+complex plain codes, the DFT engine. The JAX decoder vmaps a `lax.scan`;
+here the batch of codewords is a leading dimension and the iterations are a
 Python loop of t_max - 1 steps. A codeword that has converged is frozen
 row by row with `torch.where`, exactly as the JAX decoder freezes its
-state, so the outputs do not depend on what else is in the batch.
+state, so the outputs do not depend on what else is in the batch. The
+decoder's state takes y's type: complex64 for complex y, else float32.
 
 Kernels on the path (both run when the tensors are on a card, and their
 plain versions run on the CPU):
-  * the signed FWHT of both design products (`ops/wht_cuda.py`): K1 with
-    `fwht_mode="ms"` (the default), K2 with `fwht_mode="2mm"`;
-  * the fused denoiser tail (`ops/denoiser_cuda.py`), whenever the shape is
-    eligible and `fused_denoiser` is not False.
+  * the signed FWHT of both SRHT design products (`ops/wht_cuda.py`): K1
+    with `fwht_mode="ms"` (the default), K2 with `fwht_mode="2mm"` on real
+    data; complex data runs K1 on stacked real rows;
+  * the fused denoiser tail (`ops/denoiser_cuda.py`), for real K=1 codes
+    whenever the shape is eligible and `fused_denoiser` is not False.
 """
 
 from __future__ import annotations
@@ -24,22 +28,21 @@ import torch
 
 from ..config import SparcParams, DecodeParams, create_base_matrix
 from ..device import resolve_device
-from ..ops.transforms import SparcDesign
+from ..ops.transforms import SparcDesign, design_class
 from ..ops.denoiser import mmse_denoise, map_estimate
 from ..ops.denoiser_cuda import fused_eligible, fused_denoise_update
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
-from ..utils.metrics import bit_error_rate, section_errors
+from ..utils.metrics import (bit_error_rate, location_value_errors,
+                             section_errors)
 
 
 def design_for_params(params: SparcParams, awgn_var: float, seed,
-                      engine: str = "srht", device=None) -> SparcDesign:
+                      engine: str = "srht", device=None):
     """The seeded design of `params`, on the card unless `device` says
-    otherwise. Only the 'srht' engine is ported; the complex 'dft' engine is
-    queued in ROADMAP.md."""
-    if engine != "srht":
-        raise NotImplementedError(f"design engine {engine!r} is not ported")
-    return SparcDesign.for_params(params, awgn_var, seed, device)
+    otherwise: a `SparcDesign` ('srht', every family) or a `DftDesign`
+    ('dft', the reference's complex ensemble, complex plain codes)."""
+    return design_class(engine).for_params(params, awgn_var, seed, device)
 
 
 # --------------------------------------------------------------------------
@@ -62,9 +65,14 @@ def sparc_encode(params: SparcParams, awgn_var: float, seed,
 
 def awgn_channel(x: torch.Tensor, awgn_var: float,
                  gen: torch.Generator) -> torch.Tensor:
-    """Real AWGN channel: x + N(0, awgn_var) noise drawn from `gen`."""
+    """AWGN channel: x + N(0, awgn_var) noise drawn from `gen`; a complex x
+    gets circular noise of total variance awgn_var, awgn_var/2 a part, the
+    real part drawn before the imaginary part."""
     if x.is_complex():
-        raise NotImplementedError("complex codes are not ported")
+        part = x.real.dtype
+        re = torch.randn(x.shape, generator=gen, device=x.device, dtype=part)
+        im = torch.randn(x.shape, generator=gen, device=x.device, dtype=part)
+        return x + torch.complex(re, im) * float(np.sqrt(awgn_var / 2))
     noise = torch.randn(x.shape, generator=gen, device=x.device,
                         dtype=x.dtype)
     return x + noise * float(np.sqrt(awgn_var))
@@ -73,6 +81,11 @@ def awgn_channel(x: torch.Tensor, awgn_var: float,
 # --------------------------------------------------------------------------
 # AMP decoder
 # --------------------------------------------------------------------------
+
+def _abs2(v: torch.Tensor) -> torch.Tensor:
+    """|v|^2 elementwise (v ** 2 for real v)."""
+    return v.abs() ** 2 if v.is_complex() else v ** 2
+
 
 class AmpResult(NamedTuple):
     beta: torch.Tensor        # (..., LM) hard-decision (MAP on s), unit amp
@@ -88,7 +101,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
                beta0: Optional[torch.Tensor] = None, W=None,
                fused_denoiser: bool | None = None,
                fwht_kernel: bool = True, fwht_mode: str = "ms") -> AmpResult:
-    """AMP decoding of real SPARC codewords y (..., n).
+    """AMP decoding of SPARC codewords y (..., n), real or complex.
 
     Per iteration (unified 2-D base-matrix form, Lr x Lc blocks):
         gamma = W @ psi / Lc                       residual var minus noise var
@@ -97,7 +110,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
               | per-row-block mean |z|^2    (phi_est_method=2)
         tau_c = (L/Mr) / (W^T (1/phi))_c           effective noise variance
         s     = beta + repeat(tau, Mc) * A^T (z / repeat(phi, Mr))
-        beta  = MMSE eta(s, tau)
+        beta  = MMSE eta(s, tau)             (K-PSK denoiser for K > 1)
         psi_c = 1 - sum|beta_c|^2 / (L/Lc)
     for t_max - 1 iterations, with per-codeword freezing once psi stops
     moving (allclose with rtol and atol = 2 * float32 resolution), then a
@@ -109,13 +122,13 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     on the plain FWHT chain. fwht_mode: "ms" (K1, float32) or "2mm" (K2,
     bf16 operands), the JAX package's `set_fwht_backend` mode.
 
-    Every base-matrix family of real, K=1 codes takes this one loop: the
-    plain code (W is 1 x 1), power allocation (1 x B) and spatial coupling
-    (Lr x Lc), whose E nonzero blocks go through one batched transform.
+    Every base-matrix family takes this one loop: the plain code (W is
+    1 x 1), power allocation (1 x B) and spatial coupling (Lr x Lc), whose E
+    nonzero blocks go through one batched transform. The state (beta, z, s)
+    is complex64 for complex y, else float32; a K=1 denoiser's real
+    estimate joins a complex state as complex.
     """
-    if y.is_complex():
-        raise NotImplementedError("complex codes are not ported")
-    eligible = fused_eligible(params.M, params.K, False)
+    eligible = fused_eligible(params.M, params.K, y.is_complex())
     if fused_denoiser and not eligible:
         raise ValueError(f"the fused denoiser does not take M={params.M}, "
                          f"K={params.K}")
@@ -131,7 +144,8 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     atol = 2 * float(np.finfo(np.float32).resolution)
 
     batch = y.shape[:-1]
-    y = y.reshape(-1, n).to(torch.float32)
+    cdtype = torch.complex64 if y.is_complex() else torch.float32
+    y = y.reshape(-1, n).to(cdtype)
     B = y.shape[0]
     if beta0 is not None:
         beta0 = beta0.reshape(-1, LM)
@@ -139,7 +153,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     def per_row_block(v, stat):  # (B, n) op (B, Lr) broadcast over Mr
         return v.reshape(B, Lr, Mr), stat[:, :, None]
 
-    beta = torch.zeros(B, LM, dtype=torch.float32, device=y.device)
+    beta = torch.zeros(B, LM, dtype=cdtype, device=y.device)
     z = torch.zeros_like(y)
     s = torch.zeros_like(beta)
     phi = torch.ones(B, Lr, dtype=torch.float32, device=y.device)
@@ -171,9 +185,9 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
         else:
             tc = tau[:, :, None]
             s_new = (beta.reshape(B, Lc, Mc) + tc * azo.reshape(B, Lc, Mc))
-            beta_new = mmse_denoise(s_new, 1.0 / tc, M, K).reshape(B, LM)
+            beta_new = mmse_denoise(s_new, 1.0 / tc, M, K).reshape(B, LM).to(cdtype)
             s_new = s_new.reshape(B, LM)
-            psi_new = 1.0 - (beta_new.reshape(B, Lc, Mc) ** 2).sum(-1) / sec_per_col
+            psi_new = 1.0 - _abs2(beta_new.reshape(B, Lc, Mc)).sum(-1) / sec_per_col
 
         converged = (t > 0) & ((psi_new - psi).abs()
                                <= atol + decode.rtol * psi.abs()).all(-1)
@@ -188,7 +202,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
         stopped = stopped | converged
 
         if beta0 is not None:
-            err = ((beta - beta0) ** 2).reshape(B, Lc, Mc).sum(-1)
+            err = _abs2(beta - beta0).reshape(B, Lc, Mc).sum(-1)
             nmse.append(err / sec_per_col)
         else:
             nmse.append(psi)
@@ -237,7 +251,9 @@ def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
     """One trial end to end: bits -> beta0 -> x -> AWGN -> AMP -> metrics.
 
     Returns ber, cer, t_final, nmse, detect, ser, num_of_sec_errs and
-    loc_of_sec_errs (the indices of the sections decoded wrong).
+    loc_of_sec_errs (the indices of the sections decoded wrong); a modulated
+    code adds ler, ver, num_of_loc_errs, num_of_val_errs, loc_of_loc_errs
+    and loc_of_val_errs (`utils.metrics.location_value_errors`).
     fused_denoiser: see `amp_decode`; False takes the plain denoiser tail,
     whose stop fires where the JAX package's does.
     """
@@ -257,9 +273,19 @@ def sparc_sim(params: SparcParams, decode: DecodeParams, awgn_var: float,
     bits_out = bitops.msg_vector_to_bits(res.beta, params.M, params.K)
 
     ber = bit_error_rate(bits_in, bits_out)
-    err, ser = section_errors(beta0, res.beta, params.L)
-    return {"ber": ber, "cer": (ber > 0).to(torch.float32),
-            "t_final": res.t_final, "nmse": res.nmse,
-            "detect": (~((ber > 0) ^ expect_err)).to(torch.float32),
-            "ser": ser, "num_of_sec_errs": err.sum(),
-            "loc_of_sec_errs": np.flatnonzero(err.cpu().numpy())}
+    out = {"ber": ber, "cer": (ber > 0).to(torch.float32),
+           "t_final": res.t_final, "nmse": res.nmse,
+           "detect": (~((ber > 0) ^ expect_err)).to(torch.float32)}
+    if not params.modulated:
+        err, ser = section_errors(beta0, res.beta, params.L)
+        inds = {"sec": err}
+    else:
+        (ler, ver, ser), (loc_e, val_e, err) = location_value_errors(
+            beta0, res.beta, params.L)
+        out.update(ler=ler, ver=ver, num_of_loc_errs=loc_e.sum(),
+                   num_of_val_errs=val_e.sum())
+        inds = {"sec": err, "loc": loc_e, "val": val_e}
+    out.update(ser=ser, num_of_sec_errs=err.sum())
+    for name, ind in inds.items():
+        out[f"loc_of_{name}_errs"] = np.flatnonzero(ind.cpu().numpy())
+    return out

@@ -33,9 +33,22 @@ Products take leading batch dimensions: `ab` maps (..., L*M) to (..., n)
 and `az` maps (..., n) to (..., L*M), with one transform call per product
 for the whole batch.
 
+Complex values (complex and K-PSK codes, K >= 4) go through the same real
+transforms: `srht_apply` stacks the real rows, then the imaginary rows,
+into one real batch of twice the rows and makes one transform call (K1's
+sign rule `signs[r % E]` serves it unchanged, since the row count stays a
+multiple of E), then joins the two halves. Complex data never takes K2:
+the JAX package's Pallas routing refuses complex input
+(`wht_pallas.use_pallas_srht`), so "2mm" keeps the float32 transform there.
+
 `DesignStack` is the Monte Carlo's "one design per trial": D one-block
 designs of one shape laid along `srht_apply`'s block axis, so that one
 product serves a batch of D rows, row t through design t.
+
+`DftDesign` is the second design engine, the reference's exact complex
+subsampled-DFT ensemble, for complex plain codes (`engine="dft"`). Its
+products are `torch.fft.fft` calls, as the JAX package's are `jnp.fft`
+calls outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -127,9 +140,15 @@ def srht_apply(vals: torch.Tensor, idx: torch.Tensor, signs: torch.Tensor,
     [offset, offset + dim). scale: optional (E,) per-block multipliers,
     applied on the small (index) side, where they cost O(small). idx32:
     an int32 copy of idx for K1's fused products, which otherwise make one
-    per call on a card.
+    per call on a card. Complex vals: their real and imaginary parts as one
+    stacked real batch through the float32 transform (never K2).
     """
     transform = fwht_transform(fwht_mode, fwht_kernel)
+    if vals.is_complex():
+        parts = srht_apply(torch.stack([vals.real, vals.imag]), idx, signs, w,
+                           in_dim, out_dim, idx_side_is_input, offset, scale,
+                           fwht_kernel, "ms", idx32)
+        return torch.complex(parts[0], parts[1])
     window = out_dim if idx_side_is_input else in_dim
     if not (offset == 0 and window == w
             and K2_SRHT_LOG_W[0] <= w.bit_length() - 1 <= K2_SRHT_LOG_W[1]):
@@ -317,6 +336,81 @@ class SparcDesign:
 
 
 @dataclass(eq=False)
+class DftDesign:
+    """Seeded subsampled-DFT design operator: A = sqrt(P/L) F_w[rows][:, cols]
+    with F the unnormalised w-point DFT matrix and rows (n,) and cols (LM,)
+    drawn without replacement from [0, w) without 0 and w/2, each sorted.
+    Complex plain (scalar-W) codes only. Tensors rows and cols are int64 on
+    one device; w, n, LM and the real scale are static."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    w: int
+    n: int
+    LM: int
+    scale: float
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    @classmethod
+    def for_params(cls, params: SparcParams, awgn_var: float, seed,
+                   device=None) -> "DftDesign":
+        """The design of `params` from `np.random.default_rng(seed)`: one
+        permutation of the allowed indices for the rows, then one for the
+        columns (any other order is another design). On the card unless
+        `device` says otherwise."""
+        if not params.is_complex:
+            raise ValueError("DftDesign is the complex-code engine")
+        if params.power_allocated or params.spatially_coupled:
+            raise ValueError("DftDesign takes the plain (scalar-W) families only")
+        device = resolve_device(device)
+        n, LM = params.codeword_length(), params.L * params.M
+        w = 1 << int(np.ceil(np.log2(max(n + 2, LM + 2))))
+        rng = np.random.default_rng(seed)
+        allowed = np.delete(np.arange(w, dtype=np.int32), [0, w // 2])
+        rows = np.sort(rng.permutation(allowed)[:n])
+        cols = np.sort(rng.permutation(allowed)[:LM])
+        return cls(torch.as_tensor(rows, dtype=torch.int64, device=device),
+                   torch.as_tensor(cols, dtype=torch.int64, device=device),
+                   w, n, LM, float(np.sqrt(params.P / params.L)))
+
+    # fwht_kernel and fwht_mode are the SRHT products' arguments; the DFT's
+    # products are torch.fft calls whatever they say
+    def ab(self, beta: torch.Tensor, fwht_kernel: bool = True,
+           fwht_mode: str = "ms") -> torch.Tensor:
+        """A @ beta. beta: (..., LM) -> (..., n) complex64."""
+        x = beta.new_zeros(beta.shape[:-1] + (self.w,), dtype=torch.complex64)
+        x[..., self.cols] = beta.to(torch.complex64)
+        return self.scale * torch.fft.fft(x)[..., self.rows]
+
+    def az(self, z: torch.Tensor, fwht_kernel: bool = True,
+           fwht_mode: str = "ms") -> torch.Tensor:
+        """A^H @ z = scale conj(fft(conj(y)))[cols] with y z at the rows.
+        z: (..., n) -> (..., LM) complex64."""
+        y = z.new_zeros(z.shape[:-1] + (self.w,), dtype=torch.complex64)
+        y[..., self.rows] = z.to(torch.complex64)
+        return self.scale * torch.fft.fft(y.conj()).conj()[..., self.cols]
+
+    def dense(self) -> np.ndarray:
+        """Materialize A as a dense (n, LM) numpy array. Tests only."""
+        eye = torch.eye(self.LM, dtype=torch.complex64, device=self.device)
+        return self.ab(eye).T.cpu().numpy()
+
+
+ENGINES = {"srht": SparcDesign, "dft": DftDesign}
+
+
+def design_class(engine: str):
+    """The design class of `engine`: 'srht' (the default, every family) or
+    'dft' (complex plain codes)."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {sorted(ENGINES)}, got {engine!r}")
+    return ENGINES[engine]
+
+
+@dataclass(eq=False)
 class DesignStack:
     """D designs of one block each (W is 1 x 1) and of one shape, stacked
     along the block axis of `srht_apply`: one design per row of a batch.
@@ -395,12 +489,10 @@ class DesignStack:
 
 def stack_designs(params: SparcParams, awgn_var: float, seed, count: int,
                   engine: str = "srht", device=None):
-    """`count` independent designs of `params`, design d seeded (seed, d):
-    the Monte-Carlo seed convention of the JAX package's `stack_designs`.
-    Returns the list of designs (the JAX package stacks their leaves for
-    vmap; the port decodes one design at a time). Only the 'srht' engine is
-    ported."""
-    if engine != "srht":
-        raise NotImplementedError(f"design engine {engine!r} is not ported")
-    return [SparcDesign.for_params(params, awgn_var, (seed, d), device)
+    """`count` independent designs of `params` by `engine`, design d seeded
+    (seed, d): the Monte-Carlo seed convention of the JAX package's
+    `stack_designs`. Returns the list of designs (the JAX package stacks
+    their leaves for vmap; the port decodes one design at a time)."""
+    cls = design_class(engine)
+    return [cls.for_params(params, awgn_var, (seed, d), device)
             for d in range(count)]

@@ -57,10 +57,13 @@ def _factorize(log_w: int, max_log_factor: int | None) -> list[int]:
 
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Walsh-Hadamard transform along the last axis (unnormalised,
-    H H = w I). x: real (..., w) with w a power of two."""
+    H H = w I). x: (..., w) with w a power of two; a complex x is
+    transformed as its real and imaginary parts (H is real)."""
     w = x.shape[-1]
     if not (w > 0 and (w & (w - 1)) == 0):
         raise ValueError(f"FWHT length must be a power of two, got {w}")
+    if x.is_complex():
+        return torch.complex(fwht(x.real), fwht(x.imag))
     factors = _factorize(w.bit_length() - 1, None)
     batch = tuple(x.shape[:-1])
     y = x.reshape(batch + tuple(factors))

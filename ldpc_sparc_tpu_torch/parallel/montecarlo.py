@@ -5,7 +5,8 @@ Counterpart of the single-device parts of
 `ldpc_sparc_tpu/parallel/montecarlo.py`:
 
 * `sparc_mc_counts` / `sparc_ber_sweep`: SPARC encode -> AWGN -> AMP ->
-  count trials (the performance_plots sweep). The JAX package's contract
+  count trials (the performance_plots sweep), for every family, real or
+  complex, K=1 or K-PSK, with either design engine. The JAX package's contract
   holds: trial t draws its bits, then its noise, from one generator seeded
   from `rng.derive(seed, t)`, and uses design (seed, t % n_designs) with
   n_designs = min(8, n_trials). The counters are then a function of
@@ -43,6 +44,7 @@ from ..ops.bp import bp_decode
 from ..ops.transforms import DesignStack, stack_designs
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
+from ..utils.metrics import location_value_errors
 
 
 # --------------------------------------------------------------------------
@@ -56,61 +58,71 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
     """Run n_trials independent SPARC encode -> AWGN -> AMP -> count trials.
 
     Trial t: bits then noise from `root_generator(derive(seed, t))`, design
-    (seed, t % n_designs). The trials of one design decode together, as one
-    `decode_batch` call. fused_denoiser: see `models.sparc.amp_decode`.
+    (seed, t % n_designs) by `engine` ('srht' or 'dft'). The trials of one
+    design decode together, as one `decode_batch` call. fused_denoiser: see
+    `models.sparc.amp_decode`.
 
     Returns the counters bit_errs, bits, sec_errs, sections, frame_errs,
-    frames, iters.
+    frames, iters; a modulated code adds loc_errs and val_errs, and its
+    section errors are `location_value_errors`'.
     """
-    if params.modulated:
-        raise NotImplementedError("PSK-modulated SPARCs are not ported")
-    if params.is_complex:
-        raise NotImplementedError("complex SPARCs are not ported")
     device = resolve_device(device)
     if n_designs is None:
         n_designs = min(8, n_trials)
     designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
-    M, L = params.M, params.L
-    totals = torch.zeros(4, dtype=torch.int64, device=device)
+    M, K, L = params.M, params.K, params.L
+    totals = torch.zeros(6, dtype=torch.int64, device=device)
     for d, design in enumerate(designs):
         gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
                 for t in range(d, n_trials, n_designs)]
         if not gens:
             continue
         bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
-        beta0 = bitops.bits_to_msg_vector(bits, M)
+        beta0 = bitops.bits_to_msg_vector(bits, M, K)
         x = design.ab(beta0, fwht_mode=fwht_mode)
         y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
         beta, t_final = decode_batch(y, design, params, decode, awgn_var,
                                      fused_denoiser=fused_denoiser,
                                      fwht_mode=fwht_mode)
-        bit_errs = (bitops.msg_vector_to_bits(beta, M) != bits).sum(-1)
-        sec_errs = (beta != beta0).reshape(-1, L, M).any(-1).sum(-1)
-        totals += torch.stack([bit_errs.sum(), sec_errs.sum(),
-                               (bit_errs > 0).sum(), t_final.sum()])
-    be, se, fe, it = totals.tolist()
-    return {"bit_errs": be, "bits": n_trials * params.bit_len,
-            "sec_errs": se, "sections": n_trials * L,
-            "frame_errs": fe, "frames": n_trials, "iters": it}
+        bit_errs = (bitops.msg_vector_to_bits(beta, M, K) != bits).sum(-1)
+        if params.modulated:
+            _, (loc_e, val_e, sec_e) = location_value_errors(beta0, beta, L)
+            loc_errs, val_errs = loc_e.sum(), val_e.sum()
+        else:
+            sec_e = (beta != beta0).reshape(-1, L, M).any(-1)
+            loc_errs = val_errs = torch.zeros((), dtype=torch.int64, device=device)
+        totals += torch.stack([bit_errs.sum(), sec_e.sum(), (bit_errs > 0).sum(),
+                               t_final.sum(), loc_errs, val_errs])
+    be, se, fe, it, le, ve = totals.tolist()
+    counts = {"bit_errs": be, "bits": n_trials * params.bit_len,
+              "sec_errs": se, "sections": n_trials * L,
+              "frame_errs": fe, "frames": n_trials, "iters": it}
+    if params.modulated:
+        counts.update(loc_errs=le, val_errs=ve)
+    return counts
 
 
 def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
                     n_trials: int, engine: str = "srht", fwht_mode: str = "ms",
                     device=None, fused_denoiser: bool | None = None) -> list[dict]:
-    """BER / SER / FER at each noise level (the performance_plots sweep);
-    point i is seeded (seed, i)."""
+    """BER / SER / FER at each noise level (the performance_plots sweep),
+    and LER / VER for a modulated code; point i is seeded (seed, i)."""
     device = resolve_device(device)
     rows = []
     for i, v in enumerate(np.atleast_1d(awgn_vars)):
         c = sparc_mc_counts(params, decode, float(v), (seed, i), n_trials,
                             engine=engine, fwht_mode=fwht_mode, device=device,
                             fused_denoiser=fused_denoiser)
-        rows.append({"awgn_var": float(v),
-                     "ber": c["bit_errs"] / c["bits"],
-                     "ser": c["sec_errs"] / c["sections"],
-                     "fer": c["frame_errs"] / c["frames"],
-                     "avg_iters": c["iters"] / c["frames"],
-                     **c})
+        row = {"awgn_var": float(v),
+               "ber": c["bit_errs"] / c["bits"],
+               "ser": c["sec_errs"] / c["sections"],
+               "fer": c["frame_errs"] / c["frames"],
+               "avg_iters": c["iters"] / c["frames"],
+               **c}
+        if params.modulated:
+            row["ler"] = c["loc_errs"] / c["sections"]
+            row["ver"] = c["val_errs"] / c["sections"]
+        rows.append(row)
     return rows
 
 

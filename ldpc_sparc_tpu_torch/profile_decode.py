@@ -1,12 +1,14 @@
 """Where the time of one batched decode goes on the card.
 
-    python -m ldpc_sparc_tpu_torch.profile_decode [--path amp|sc|bp|concat] [--batch 256] [--out FILE]
+    python -m ldpc_sparc_tpu_torch.profile_decode [--path amp|sc|mod|bp|concat] [--batch 256] [--out FILE]
 
 Builds the problem of the path: for `amp` (the default) `bench.py`'s plain
 SPARC at L=1024, M=512, R=1.0, P=15, awgn_var 1, t_max 25, seed 0; for
 `sc` the spatially coupled SPARC of `chip_smoke.py` phase 10 (L=2048,
 M=512, omega=6, Lambda=32, R=1.5, P=15, awgn_var 1, t_max 40, seed 0); for
-`bp` 802.11n r=1/2 z=27 codewords at sigma^2 = 10^-0.2, decoded by
+`mod` the complex K=4 PSK code of `chip_smoke.py` phase 14 (L=2048, M=8,
+R=2.6, P=15, awgn_var 1, t_max 25, seed 0, `--batch` codewords, 128 unless
+given); for `bp` 802.11n r=1/2 z=27 codewords at sigma^2 = 10^-0.2, decoded by
 sumprod2 for at most 50 iterations; for `concat` the z=150 concatenated
 point `bench.py` times (802.16 r=1/2, mults=4, M=2, L=14,400, P=19.44,
 R=1.0, t_max 25, awgn_var P/3.8, seed (3, 0), `--batch` trials, 20 unless
@@ -68,33 +70,37 @@ def _trace(fn) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("amp", "sc", "bp", "concat"), default="amp")
+    ap.add_argument("--path", choices=("amp", "sc", "mod", "bp", "concat"), default="amp")
     ap.add_argument("--batch", type=int, default=None,
-                    help="codewords or trials a decode (256; concat: 20)")
+                    help="codewords or trials a decode (256; mod: 128; concat: 20)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the numbers as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_decode: needs a CUDA device")
     if args.batch is None:
-        args.batch = 20 if args.path == "concat" else 256
+        args.batch = {"concat": 20, "mod": 128}.get(args.path, 256)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"card": torch.cuda.get_device_name(0), "path": args.path,
            "batch": args.batch}
-    if args.path in ("amp", "sc"):
+    if args.path in ("amp", "sc", "mod"):
         params, decode, awgn_var = SparcParams(P=15.0, R=1.0, L=1024, M=512), \
             DecodeParams(t_max=25), 1.0
         if args.path == "sc":
             params = SparcParams(P=15.0, R=1.5, L=2048, M=512, spatially_coupled=True,
                                  omega=6, Lambda=32)
             decode = DecodeParams(t_max=40)
+        elif args.path == "mod":
+            params = SparcParams(P=15.0, R=2.6, L=2048, M=8, modulated=True, K=4,
+                                 is_complex=True)
+            out["iterations"] = decode.t_max - 1
         design = SparcDesign.for_params(params, awgn_var, seed=0, device=dev)
         bits = bitops.random_bits(gen, args.batch * params.bit_len).reshape(
             args.batch, params.bit_len)
-        y = awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)),
+        y = awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M, params.K)),
                          awgn_var, gen)
         paths = {"kernel": lambda: decode_batch(y, design, params, decode, awgn_var),
                  **({"kernel-2mm": lambda: decode_batch(

@@ -50,10 +50,18 @@ def test_ints_bits_match_jax():
 
 
 def test_modulated_codes_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        tbits.bits_to_msg_vector(torch.zeros(8, dtype=torch.bool), 4, K=2)
-    with pytest.raises(NotImplementedError):
-        tbits.msg_vector_to_bits(torch.zeros(8), 4, K=4)
+    """Once refused, the K-PSK codecs are ported: the cases that raised
+    give the JAX package's results (tests/test_torch_modulated.py holds
+    them at K = 2, 4, 8)."""
+    zeros = np.zeros(8, dtype=bool)             # 2 sections of log2(4) + 2 bits
+    got = tbits.bits_to_msg_vector(torch.as_tensor(zeros[:6]), 4, K=2)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jbits.bits_to_msg_vector(jnp.asarray(zeros[:6]), 4, K=2)))
+    v = np.zeros(8, np.complex64)
+    v[[1, 6]] = [1j, -1.0]
+    np.testing.assert_array_equal(
+        tbits.msg_vector_to_bits(torch.as_tensor(v), 4, K=4).numpy(),
+        np.asarray(jbits.msg_vector_to_bits(jnp.asarray(v), 4, K=4)))
 
 
 def test_random_bits_are_seeded():

@@ -51,10 +51,18 @@ def test_map_estimate_matches_jax(L, M):
 
 
 def test_modulated_codes_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        tden.mmse_denoise(torch.zeros(16), 1.0, 8, K=2)
-    with pytest.raises(NotImplementedError):
-        tden.map_estimate(torch.zeros(16), 8, K=4)
+    """Once refused, the K-PSK denoisers are ported: the cases that raised
+    give the JAX package's results (tests/test_torch_modulated.py holds
+    them at K = 1 complex, 2, 4, 8)."""
+    s = np.linspace(-2, 2, 16).astype(np.float32)
+    np.testing.assert_allclose(
+        tden.mmse_denoise(torch.as_tensor(s), 1.0, 8, K=2).numpy(),
+        np.asarray(jden.mmse_denoise(jnp.asarray(s), jnp.float32(1.0), 8, K=2)),
+        rtol=1e-5, atol=1e-6)
+    sc = (s + 1j * s[::-1]).astype(np.complex64)
+    np.testing.assert_array_equal(
+        tden.map_estimate(torch.as_tensor(sc), 8, K=4).numpy(),
+        np.asarray(jden.map_estimate(jnp.asarray(sc), 8, K=4)))
 
 
 @pytest.mark.parametrize("L,M", [(8, 128), (4, 256)])

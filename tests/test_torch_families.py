@@ -148,7 +148,9 @@ def test_2mm_transform_decodes_like_jax(name):
 @pytest.mark.parametrize("name", sorted(CODES))
 def test_2mm_takes_k2_only_where_jax_does(name):
     """K2 on full offset-0 windows of 2^14 to 2^20 (JAX's use_pallas_srht);
-    elsewhere "2mm" gives the float32 products bit for bit."""
+    elsewhere "2mm" gives the float32 products bit for bit. Complex data
+    never takes K2 (use_pallas_srht refuses it): its "2mm" products are the
+    float32 ones bit for bit on every code, "sc-w14" included."""
     td, beta0, y, _ = _jax_decode(name)
     # Gaussian inputs: beta0's 0/1 entries are exact in bf16
     b = torch.as_tensor(np.random.default_rng(0).normal(size=beta0.shape)
@@ -158,6 +160,9 @@ def test_2mm_takes_k2_only_where_jax_does(name):
     assert k2 == (name == "sc-w14")
     assert torch.equal(td.ab(b, fwht_mode="2mm"), td.ab(b)) is not k2
     assert torch.equal(td.az(z, fwht_mode="2mm"), td.az(z)) is not k2
+    bc, zc = torch.complex(b, b.flip(-1)), torch.complex(z, -z.flip(-1))
+    assert torch.equal(td.ab(bc, fwht_mode="2mm"), td.ab(bc))
+    assert torch.equal(td.az(zc, fwht_mode="2mm"), td.az(zc))
 
 
 def test_design_shapes_cover_both_window_layouts():
@@ -181,8 +186,9 @@ def test_stack_designs_matches_jax(name):
     for d in designs:
         assert (d.rows, d.cols, d.w, d.offset) == (
             jproto.rows, jproto.cols, jproto.w, jproto.offset)
-    with pytest.raises(NotImplementedError):
-        ttr.stack_designs(TParams(**kw), var, 7, 3, engine="dft")
+    # the DFT engine serves complex plain codes only (tests/test_torch_dft.py)
+    with pytest.raises(ValueError):
+        ttr.stack_designs(TParams(**kw), var, 7, 3, engine="dft", device="cpu")
 
 
 def test_fwht_mode_is_checked():

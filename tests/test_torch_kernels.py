@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from ldpc_sparc_tpu_torch import (DecodeParams, LdpcParams, SparcDesign,
-                                  SparcParams, get_code,
+                                  SparcParams, artifacts, get_code,
                                   ldpc_waterfall_campaign)
 from ldpc_sparc_tpu_torch.models import sparc
 from ldpc_sparc_tpu_torch.models.ldpc_tables import get_protograph
@@ -659,3 +659,89 @@ def test_concat_decode_through_k1_k4_matches_the_jax_fixture():
     assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == (2 * c["t_max"], c["t_max"])
     assert torch.equal(got, bits["concat_bits_out"])
     assert (got != bits["concat_user_bits"]).sum(-1).tolist() == c["errors"]
+
+
+# ---- complex and K-PSK codes through K1 -----------------------------------------
+
+MOD = dict(P=15.0, R=2.6, L=2048, M=8, modulated=True, K=4, is_complex=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["srht", "dft"])
+def test_modulated_decode_through_k1_matches_plain(engine):
+    """K=4 at L=2048 (n = 3938, w = 2^14, offset 0): with the SRHT engine
+    every design product is one K1 launch on stacked real and imaginary rows
+    (the encode, then 2 (t_max - 1) - 1 in the decode), with the DFT engine
+    none; decisions equal to the plain path's on every codeword that
+    converges, and the transmitted message on those."""
+    dev = _card()
+    params, t_max, B = SparcParams(**MOD), 16, 8
+    design = sparc.design_for_params(params, 1.0, 5, engine, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bits = bitops.random_bits(gen, B * params.bit_len).reshape(B, -1)
+    beta0 = bitops.bits_to_msg_vector(bits, params.M, params.K)
+    k1, k2 = wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM
+    y = sparc.awgn_channel(design.ab(beta0, fwht_mode="2mm"), 1.0, gen)
+    beta_k, t_k = sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0,
+                                     fwht_mode="2mm")
+    torch.cuda.synchronize()
+    assert wht_cuda.LAUNCHES - k1 == (2 * (t_max - 1) if engine == "srht" else 0)
+    assert wht_cuda.LAUNCHES_2MM == k2            # complex data never takes K2
+    beta_p, t_p = sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0,
+                                     fwht_kernel=False)
+    conv = t_p < t_max - 1
+    assert int(conv.sum()) >= B // 2
+    assert torch.equal(beta_k[conv], beta_p[conv]) and torch.equal(t_k[conv], t_p[conv])
+    assert torch.equal(beta_k[conv], beta0[conv])
+    assert beta_k.dtype == torch.complex64
+
+
+@pytest.mark.cuda
+def test_complex_srht_products_match_plain():
+    """One K1 launch a product on 2B real rows, within 1e-5 * max|ref| of
+    the plain products, at the offset-0 K=4 shape and an offset-1 one."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for kw in (MOD, dict(P=15.0, R=1.3, L=48, M=16, is_complex=True)):
+        td = SparcDesign.for_params(SparcParams(**kw), 1.0, 5, device=dev)
+        beta = torch.complex(torch.randn(3, td.LM, generator=gen, device=dev),
+                             torch.randn(3, td.LM, generator=gen, device=dev))
+        z = torch.complex(torch.randn(3, td.n, generator=gen, device=dev),
+                          torch.randn(3, td.n, generator=gen, device=dev))
+        for prod, v in ((td.ab, beta), (td.az, z)):
+            before = wht_cuda.LAUNCHES
+            got = prod(v)
+            assert wht_cuda.LAUNCHES == before + 1
+            want = prod(v, fwht_kernel=False)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ---- the Monte Carlos held to the JAX package's committed artifacts -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,snr", [(n, s) for n, ss in artifacts.K1_SWEEP_ROWS.items()
+                                      for s in ss])
+def test_sparc_sweep_row_matches_its_artifact(name, snr):
+    """`sparc_ber_sweep` at the artifact's configuration and frame count, on
+    the card: FER and SER within the two-sample bound of `artifacts`."""
+    dev = _card()
+    [row] = artifacts.run_sweep_rows(name, [snr], device=dev)
+    table = artifacts.compare_sweep(name, [row])
+    assert all(c["ok"] for c in table), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snr", artifacts.CAMPAIGN_SNRS)
+def test_campaign_point_matches_its_artifact(snr):
+    """The campaign's per-point counter through K4 under campaign_tpu.json's
+    protocol (sim_id 7): BER within tests/test_campaign_artifact.py's bound
+    of the artifact's point and of the reference points within 0.1 dB."""
+    dev = _card()
+    cfg = artifacts.campaign_config(artifacts.CAMPAIGN_SIM_ID)
+    before = bp_cuda.LAUNCHES
+    rec = artifacts.run_campaign_point(cfg, snr, device=dev)
+    assert rec[6] >= cfg["protocol"]["min_errors"]
+    assert bp_cuda.LAUNCHES - before == rec[5] // cfg["protocol"]["batch"]
+    table = artifacts.compare_campaign_point(cfg, rec)
+    assert len(table) >= 2 and all(c["ok"] for c in table), table

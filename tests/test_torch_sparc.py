@@ -149,8 +149,9 @@ def test_encode_and_decode_round_trip():
     bits_out, res, expect_err = tsparc.sparc_decode(y, design, params,
                                                     TDecode(t_max=10), AWGN_VAR)
     assert torch.equal(bits_out, bits) and not bool(expect_err)
-    with pytest.raises(NotImplementedError):
-        tsparc.design_for_params(params, AWGN_VAR, 0, engine="dft")
+    # the DFT engine is the complex codes' (tests/test_torch_dft.py)
+    with pytest.raises(ValueError):
+        tsparc.design_for_params(params, AWGN_VAR, 0, engine="dft", device="cpu")
 
 
 def test_cpu_decode_never_launches_a_kernel():

@@ -105,12 +105,15 @@ def test_counts_with_2mm_and_errors():
                             fwht_mode="2mm", device="cpu")
     # Mc = 256 < 2^14: "2mm" keeps the float32 transform, as the JAX package does
     assert a == b and a["bit_errs"] == 0 and a["frames"] == 4
-    with pytest.raises(NotImplementedError):
-        tmc.sparc_mc_counts(SparcParams(P=15.0, R=1.0, L=64, M=16, modulated=True,
-                                        K=2), DecodeParams(t_max=5), 1.0, 0, 2)
-    with pytest.raises(NotImplementedError):
-        tmc.sparc_mc_counts(SparcParams(P=15.0, R=1.0, L=64, M=16, is_complex=True),
-                            DecodeParams(t_max=5), 1.0, 0, 2)
+    # modulated and complex codes, once refused, are counted (the modulated
+    # split in tests/test_torch_modulated.py)
+    mod = tmc.sparc_mc_counts(SparcParams(P=15.0, R=1.0, L=64, M=16, modulated=True,
+                                          K=2), DecodeParams(t_max=5), 1.0, 0, 2,
+                              device="cpu")
+    assert set(mod) == KEYS | {"loc_errs", "val_errs"} and mod["bits"] == 2 * 64 * 5
+    cx = tmc.sparc_mc_counts(SparcParams(P=15.0, R=1.0, L=64, M=16, is_complex=True),
+                             DecodeParams(t_max=5), 1.0, 0, 2, device="cpu")
+    assert set(cx) == KEYS and cx["frames"] == 2
 
 
 def test_ber_sweep_rows_are_well_formed():
