@@ -42,6 +42,19 @@ products), and drives and times the paths `bench.py` times:
     and the K=1 sweeps held to `flagship_sweep.json`, `pa_sweep.json` and
     `sc_sweep.json` (phase 15); the campaign's per-point counter held to
     `campaign_tpu.json` (phase 16).
+  * slice F: K4 against the port's own float64 C++ oracle on
+    tests/test_ldpc.py's protocol (802.11n r=1/2 z=27, 2 dB, <= 60
+    iterations, 64 codewords for each of sumprod, sumprod2 and minsum;
+    phase 17); `ldpc-campaign --sim-id 7` at campaign_tpu.json's protocol,
+    4 points, then its store cut to the first 2 points (what a run killed
+    there leaves) and the campaign rerun, whose records must equal the
+    uninterrupted run's; `results2csv --native` byte-identical to the
+    Python converter and `plot-results` (phase 18); the mesh on the card:
+    a world of one (`make_mesh()`, NCCL) for `sparc_mc_counts` at the
+    headline shape and the z=150 concatenated point against `mesh=None`,
+    the section-sharded step on the SC code at (1,1), its `decode(y)`
+    against `decode_batch`, and the step at (1,2) on two ranks on this
+    one card through gloo, whose counters must equal (1,1)'s (phase 19).
 
 Each phase prints one line. The line before the last is a JSON
 summary of the kernels, each with its time, its plain version's, the least
@@ -167,6 +180,16 @@ MOD_SWEEP_ROWS = {"srht": ("modulated_sweep.json", (6.5, 7.5, 9.0, 15.0), 128,
                            ("fer", "ser", "ler", "ver")),
                   "dft": ("oracle_parity_mod_dft.json", (8.0, 9.0), 256, ("fer", "ser"))}
 MOD_SE_T_MAX, MOD_SE_SAMPLES = 300, 4000
+
+# slice F: the oracle check (tests/test_ldpc.py:91-107's protocol), the
+# campaign CLI at campaign_tpu.json's protocol, the mesh
+ORACLE_CODE, ORACLE_SNR_DB, ORACLE_ITERS, ORACLE_TRIALS = ("802.11n", "1/2", 27), 2.0, 60, 64
+ORACLE_DECTYPES = ("sumprod", "sumprod2", "minsum")
+CAMPAIGN_CLI = ["ldpc-campaign", "--sim-id", "7", "--points", "4", "--batch", "512",
+                "--dectype", "sumprod2", "--max-iters", "200", "--min-errors", "100",
+                "--device", "cuda"]
+CAMPAIGN_CUT = 2           # the points the cut store keeps
+MESH_TRIALS = 16           # sparc_mc_counts at the headline shape on the mesh
 
 
 def phase(n, text):
@@ -1333,6 +1356,225 @@ def sweeps_and_campaign(dev, card):
               f"{cfg['protocol']['min_errors']} block errors, on {card}: " + "; ".join(parts))
 
 
+def slice_f(dev, card):
+    """Phases 17-19: the oracle, the campaign CLI and the mesh."""
+    import contextlib
+    import io
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ldpc_sparc_tpu_torch import (DecodeParams, SparcDesign, SparcParams, artifacts,
+                                      cli, concat_mc_trial_errors, get_code)
+    from ldpc_sparc_tpu_torch.io.results import results_txt_to_csv
+    from ldpc_sparc_tpu_torch.models.sparc import decode_batch
+    from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.parallel.mesh import make_mesh
+    from ldpc_sparc_tpu_torch.parallel.montecarlo import sparc_mc_counts
+    from ldpc_sparc_tpu_torch.parallel.sharded import make_sharded_sim_step
+
+    # -- 17: K4 against the float64 C++ oracle ----------------------------------
+    code = get_code(*ORACLE_CODE)
+    rng = np.random.default_rng(SEED)
+    sigma2 = 1.0 / 10 ** (ORACLE_SNR_DB / 10)
+    rows = []
+    for _ in range(ORACLE_TRIALS):      # per codeword: its bits, then its noise
+        x = code.encode(torch.as_tensor(rng.integers(0, 2, code.K))).numpy()
+        rows.append(2.0 / sigma2 * ((1.0 - 2.0 * x)
+                                    + rng.normal(0, math.sqrt(sigma2), code.N)))
+    llr = np.stack(rows)
+    llr_t = torch.as_tensor(llr, dtype=torch.float32, device=dev)
+    parts = []
+    bp_cuda.LAUNCHES = 0
+    for dectype in ORACLE_DECTYPES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = code.decode(llr_t, ORACLE_ITERS, dectype)
+        torch.cuda.synchronize()
+        k4_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = [code.decode_ref(r, ORACLE_ITERS, dectype) for r in llr]
+        oracle_s = time.perf_counter() - t0
+        its = res.iterations.cpu().numpy()
+        dec = (res.app < 0).cpu().numpy()
+        bad = [i for i, (app, it) in enumerate(ref)
+               if its[i] != it or not np.array_equal(dec[i], app < 0)]
+        if bad:
+            raise AssertionError(f"K4 {dectype} differs from the float64 oracle on "
+                                 f"codewords {bad}: iterations "
+                                 f"{[(int(its[i]), ref[i][1]) for i in bad]}")
+        parts.append(f"{dectype}: iterations mean/max {float(its.mean()):.2f}/"
+                     f"{int(its.max())}, {int((its >= ORACLE_ITERS).sum())} at the cap "
+                     f"(K4 decode {k4_s * 1e3:.2f} ms, oracle {oracle_s * 1e3:.1f} ms)")
+    launches = bp_cuda.LAUNCHES
+    if launches != len(ORACLE_DECTYPES):
+        raise AssertionError(f"the oracle check launched K4 {launches} times")
+    phase(17, f"K4 vs the port's float64 C++ oracle, {ORACLE_CODE[0]} r={ORACLE_CODE[1]} "
+              f"z={ORACLE_CODE[2]} at {ORACLE_SNR_DB:g} dB, <= {ORACLE_ITERS} iterations, "
+              f"{ORACLE_TRIALS} codewords each, on {card}: decisions and iterations "
+              f"equal on every codeword | K4 launches {launches} | " + "; ".join(parts))
+
+    # -- 18: ldpc-campaign, resumed; results2csv --native; plot-results ----------
+    def run_cli(argv):
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                got = cli.main(argv)
+            except SystemExit as e:
+                got = e
+        torch.cuda.synchronize()
+        return got, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+    cfg = artifacts.campaign_config(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, cut = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
+        recs, _, err_full, dt_full = run_cli(CAMPAIGN_CLI + ["--out", full])
+        with open(os.path.join(full, "ldpc_campaign.jsonl")) as f:
+            lines = f.readlines()
+        os.makedirs(cut)
+        with open(os.path.join(cut, "ldpc_campaign.jsonl"), "w") as f:
+            f.writelines(lines[:CAMPAIGN_CUT])
+        bp_cuda.LAUNCHES = 0
+        recs2, printed, _, dt_resume = run_cli(CAMPAIGN_CLI + ["--out", cut])
+        launches_c = bp_cuda.LAUNCHES
+        files = {}
+        for name in ("ldpc_campaign.jsonl", "results.txt", "results.csv"):
+            with open(os.path.join(full, name)) as a, open(os.path.join(cut, name)) as b:
+                files[name] = a.read() == b.read()
+        resumed = [json.loads(ln)["point"] for ln in printed.splitlines()]
+        if not isinstance(recs, list) or len(recs) != 4 or recs2 != recs \
+                or not all(files.values()) or resumed != [2, 3]:
+            raise AssertionError(f"ldpc-campaign resumed: {recs2} vs {recs}, files "
+                                 f"equal {files}, points measured on resume {resumed}")
+        # the pipelined loop launches each point's batches and one more, the
+        # speculative batch it discards when the point stops
+        want = (sum(r[5] for r in recs[CAMPAIGN_CUT:]) // cfg["protocol"]["batch"]
+                + len(recs) - CAMPAIGN_CUT)
+        if launches_c != want:
+            raise AssertionError(f"the resumed campaign launched K4 {launches_c} times, "
+                                 f"expected {want}")
+        held = []
+        for rec in recs:
+            for c in artifacts.compare_campaign_point(cfg, rec):
+                if not c["ok"]:
+                    raise AssertionError(f"campaign point {rec} against {c}")
+                held.append(f"{c['snr']:.3f} dB {c['against']}")
+        txt = os.path.join(cut, "results.txt")
+        native_csv = os.path.join(cut, "native.csv")
+        got, _, err, _ = run_cli(["results2csv", txt, native_csv, "--native"])
+        with open(native_csv) as f:
+            native = f.read()
+        if isinstance(got, SystemExit) or native != results_txt_to_csv(txt):
+            raise AssertionError(f"results2csv --native differs from the Python "
+                                 f"converter: {native!r} {err}")
+        figure = os.path.join(cut, "plot.png")
+        got, _, err, _ = run_cli(["plot-results", txt, figure])
+        if os.path.exists(figure):
+            plot = f"plot-results wrote {os.path.getsize(figure)} bytes"
+        elif isinstance(got, SystemExit) and "matplotlib" in err:
+            plot = f"plot-results: {err.strip()}"
+        else:
+            raise AssertionError(f"plot-results neither wrote {figure} nor said why: {err}")
+        water = (f"waterfall.png {os.path.getsize(os.path.join(full, 'waterfall.png'))} "
+                 f"bytes" if os.path.exists(os.path.join(full, "waterfall.png"))
+                 else f"stderr: {err_full.strip()}")
+    phase(18, f"ldpc-campaign --sim-id 7 ({cfg['standard']} r={cfg['rate']} z={cfg['z']}) "
+              f"batch 512 sumprod2 <= 200 iterations >= 100 block errors, 4 points, on "
+              f"{card}: {dt_full:.2f} s; the store cut to its first {CAMPAIGN_CUT} points "
+              f"and rerun: points {resumed} measured in {dt_resume:.2f} s with "
+              f"{launches_c} K4 launches, records, store, results.txt and results.csv "
+              f"equal to the uninterrupted run's | SNR "
+              + ", ".join(f"{r[4]:.3f} dB {r[6]}/{r[5]}" for r in recs)
+              + f" | within campaign_tpu.json's bound: {', '.join(held)} | results2csv "
+              f"--native byte-identical to the Python converter ({len(native)} bytes) | "
+              f"{plot} | ldpc-campaign's {water}")
+
+    # -- 19: the mesh on the card ------------------------------------------------
+    mesh = make_mesh()
+    try:
+        head, dec = SparcParams(P=P, R=R, L=L, M=M), DecodeParams(t_max=T_MAX)
+        wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+        mc = sparc_mc_counts(head, dec, AWGN_VAR, SEED, MESH_TRIALS, mesh=mesh)
+        torch.cuda.synchronize()
+        l_mc = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+        if mc != sparc_mc_counts(head, dec, AWGN_VAR, SEED, MESH_TRIALS, device=dev) \
+                or min(l_mc) == 0:
+            raise AssertionError(f"sparc_mc_counts on a mesh of one: {mc}, launches "
+                                 f"(K1, K3) {l_mc}")
+        sp, ldpc, lengths, dp_, awgn = concat_problem()
+        wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = 0
+        e_mesh = concat_mc_trial_errors(sp, ldpc, lengths, True, dp_, awgn, CONCAT_SEED,
+                                        CONCAT_TRIALS, CONCAT_DECODER, mesh=mesh)
+        l_c = (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES)
+        e_one = concat_mc_trial_errors(sp, ldpc, lengths, True, dp_, awgn, CONCAT_SEED,
+                                       CONCAT_TRIALS, CONCAT_DECODER, device=dev)
+        if not np.array_equal(e_mesh, e_one) or min(l_c) == 0:
+            raise AssertionError(f"concat_mc_trial_errors on a mesh of one: {e_mesh} vs "
+                                 f"{e_one}, launches (K1, K4) {l_c}")
+        sc, dsc = SparcParams(**SC), DecodeParams(t_max=SC_T_MAX)
+        t0 = time.perf_counter()
+        step, _ = make_sharded_sim_step(sc, dsc, SC_AWGN, mesh, seed=SEED)
+        build_s = time.perf_counter() - t0
+        seeds = [(SEED, t) for t in range(SC_BATCH)]
+        step(seeds)
+        torch.cuda.synchronize()
+        wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        c11 = step(seeds)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        l_s = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+        it = SC_T_MAX - 1
+        if l_s != (2 * it, it):
+            raise AssertionError(f"the sharded step launched (K1, K3) {l_s}, expected "
+                                 f"{(2 * it, it)}")
+        design = SparcDesign.for_params(sc, SC_AWGN, seed=SEED, device=dev)
+        beta0, y = sc_inputs(design, sc, SC_BATCH, dev)
+        bs, ts = step.decode(y)
+        bu, tu = decode_batch(y, design, sc, dsc, SC_AWGN)
+        conv = tu < it
+        if int(conv.sum()) == 0 or not torch.equal(bs[conv], bu[conv]) or \
+                int((ts - tu).abs().max()) > 1:
+            raise AssertionError(f"sharded decode vs decode_batch: t_final "
+                                 f"{ts.tolist()} vs {tu.tolist()}")
+        del y, beta0, bs, bu, step
+    finally:
+        dist.destroy_process_group()
+    cmd = [sys.executable, "-m", "ldpc_sparc_tpu_torch.parallel.multiproc_mc",
+           "--nprocs", "2", "--sec", "2", "--sharded", "--backend", "gloo",
+           "--P", str(SC["P"]), "--R", str(SC["R"]), "--L", str(SC["L"]),
+           "--M", str(SC["M"]), "--omega", str(SC["omega"]), "--Lambda", str(SC["Lambda"]),
+           "--t-max", str(SC_T_MAX), "--trials", str(SC_BATCH), "--awgn-var", str(SC_AWGN),
+           "--seed", str(SEED), "--no-reference"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+    dt12 = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the sharded step on two ranks failed:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    r12 = json.loads(proc.stdout.strip().splitlines()[-1])
+    if r12["counts"] != c11 or r12["mesh"] != [1, 2] or \
+            min(r12["launches"].values()) == 0:
+        raise AssertionError(f"the sharded step at (1,2): {r12} against (1,1) {c11}")
+    phase(19, f"mesh on {card}: a world of one (NCCL): sparc_mc_counts L={L} M={M} R={R} "
+              f"{MESH_TRIALS} trials {mc} equal to mesh=None (launches K1, K3 {l_mc}); "
+              f"concat_mc_trial_errors z=150 {CONCAT_TRIALS} trials {CONCAT_DECODER} "
+              f"per-trial errors {e_mesh.tolist()} equal to mesh=None (launches K1, K4 "
+              f"{l_c}) | section-sharded step, SC L={SC['L']} M={SC['M']} "
+              f"omega={SC['omega']} Lambda={SC['Lambda']} R={SC['R']} t_max {SC_T_MAX}, "
+              f"{SC_BATCH} codewords: (1,1) {c11}, step {step_s:.4f} s (design build "
+              f"{build_s:.2f} s), launches (K1, K3) {l_s}; decode(y) vs decode_batch: "
+              f"decisions equal on the {int(conv.sum())} converged, t_final within 1 | "
+              f"(1,2), two ranks on this card, {r12['backend']}: {r12['counts']}, equal; "
+              f"step {r12['seconds']:.4f} s, rank 0's launches {r12['launches']} "
+              f"({dt12:.1f} s with start-up)")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1553,6 +1795,7 @@ def main():
     k1_d, k4_d = slice_d(dev, card, lxor_us)
     slice_e_kernels = slice_e(dev, card)
     sweeps_and_campaign(dev, card)
+    slice_f(dev, card)
     # K1 as the main path launches it: the two fused products, averaged. Each
     # reads or writes the (rows, w) side once, the (rows, k) side once, the
     # (E, w) signs and the (E, k) int32 indices; w log2(w) adds a row.

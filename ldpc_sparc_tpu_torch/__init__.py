@@ -12,19 +12,25 @@ against; the two share no code, and this package imports neither JAX nor
   models/    the SPARC codec and AMP decoder; state evolution; the
              802.11n / 802.16 LDPC code library; the concatenated
              LDPC-SPARC codec with its eight decoders
-  parallel/  the single-device SPARC and concatenated Monte Carlos and the
-             LDPC waterfall campaign
-  io/        the resumable JSONL results store and record helpers
-  utils/     bit codecs, generator derivation, error metrics
-  cli.py     `python -m ldpc_sparc_tpu_torch.cli sparc-sweep | concat-sweep`
+  parallel/  the SPARC and concatenated Monte Carlos and the LDPC waterfall
+             campaign, on one device or over the 'dp' axis of a
+             torch.distributed mesh (`mesh.py`); the section-sharded AMP step
+             over its 'sec' axis (`sharded.py`); a multi-process launcher
+             (`multiproc_mc.py`)
+  io/        the resumable JSONL results store, record helpers and figures
+  native/    the float64 C++ BP oracle and the native tools (g++, ctypes)
+  utils/     bit codecs, generator derivation, error metrics, profiling
+  cli.py     `python -m ldpc_sparc_tpu_torch.cli sparc-sweep | ldpc-campaign |
+             concat-sweep | results2csv | plot-results`
   parity.py  carries a JAX-built design into the port
 
-Ported so far: the SPARC AMP decode of every family (plain,
-power-allocated, spatially coupled), real or complex, unmodulated or K-PSK,
-with the SRHT design or, for complex plain codes, the DFT design; state
-evolution, the SPARC Monte Carlo and its sweep CLI; LDPC BP, the code library and the waterfall
-campaign; the AMP <-> BP bridges, the concatenated codec, its Monte Carlo
-and `concat-sweep`.
+Every module of the JAX package is ported but `utils/compile_cache.py`
+(JAX's compilation cache has no counterpart here): the SPARC AMP decode of
+every family (plain, power-allocated, spatially coupled), real or complex,
+unmodulated or K-PSK, with the SRHT design or, for complex plain codes, the
+DFT design; state evolution; LDPC BP, the code library and its oracle;
+the AMP <-> BP bridges and the concatenated codec; the Monte Carlos, the
+mesh and the section-sharded step; every CLI subcommand and figure.
 """
 
 from .config import (SparcParams, DecodeParams, LdpcParams, ConcatLengths,

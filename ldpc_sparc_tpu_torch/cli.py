@@ -1,23 +1,31 @@
-"""Command-line entry points of the port: the SPARC BER sweep and the
-concatenated LDPC-SPARC decoder sweep.
+"""Command-line entry points of the port.
 
-    python -m ldpc_sparc_tpu_torch.cli sparc-sweep --L 1024 --M 32 --R 1.3 ...
-    python -m ldpc_sparc_tpu_torch.cli concat-sweep --z 150 --runs 20 ...
+    python -m ldpc_sparc_tpu_torch.cli sparc-sweep   --L 1024 --M 32 --R 1.3 ...
+    python -m ldpc_sparc_tpu_torch.cli ldpc-campaign --sim-id 7 ...
+    python -m ldpc_sparc_tpu_torch.cli concat-sweep  --z 150 --runs 20 ...
+    python -m ldpc_sparc_tpu_torch.cli results2csv   results.txt results.csv [--native]
+    python -m ldpc_sparc_tpu_torch.cli plot-results  results.txt waterfall.pdf
 
-Counterparts of `ldpc_sparc_tpu/cli.py`'s `sparc-sweep` and `concat-sweep`,
-with their flags less `--platform` (here `--device`), plus
-`--fwht-mode {ms,2mm}` and `--no-fused-denoiser` on `sparc-sweep`, which
-takes every family: `--modulated --K 2|4|8` (K > 2 is complex),
-`--complex`, and `--design-engine dft` for complex plain codes. Rows go to
-the resumable JSONL stores `<out>/sparc_sweep.jsonl` and
-`<out>/concat_sweep[_semi].jsonl` under the JAX CLI's keys, so a sweep
-rerun into the same `--out` returns the stored rows instead of decoding
-them again, whichever package wrote them. The design engine, `fwht_mode`
-and the denoiser tail join the SPARC configuration key only when they are
-not the defaults: another ensemble, K2's bf16 operands and the plain
-tail's stop are different computations. `concat-sweep` writes no figure
-yet (the plotting functions are not ported). The other subcommands are
-not ported yet (ROADMAP.md).
+Counterparts of `ldpc_sparc_tpu/cli.py`'s five subcommands, with their
+flags less `--platform` (here `--device`: the card by default, an error
+where there is none, `--device cpu` for the CPU), plus `--fwht-mode
+{ms,2mm}` and `--no-fused-denoiser` on `sparc-sweep`, which takes every
+family: `--modulated --K 2|4|8` (K > 2 is complex), `--complex`, and
+`--design-engine dft` for complex plain codes. Rows go to the resumable
+JSONL stores `<out>/sparc_sweep.jsonl`, `<out>/ldpc_campaign.jsonl` and
+`<out>/concat_sweep[_semi].jsonl` under the JAX CLI's keys, so a rerun
+into the same `--out` returns the stored rows instead of decoding them
+again, whichever package wrote them. The design engine, `fwht_mode` and
+the denoiser tail join the SPARC configuration key only when they are not
+the defaults: another ensemble, K2's bf16 operands and the plain tail's
+stop are different computations.
+
+`ldpc-campaign` resumes after the last stored point of its configuration
+and then rewrites `<out>/results.txt` and `<out>/results.csv` from the
+store, so a rerun duplicates no line; `waterfall.png` follows, and
+`concat-sweep` writes `<out>/<stem>.png`. The figures need matplotlib:
+without it the records are written all the same and one line on stderr
+says that no figure was written.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +44,29 @@ def _config_key(**fields) -> str:
     blob = json.dumps({k: repr(v) for k, v in sorted(fields.items())},
                       sort_keys=True)
     return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def _figure(plot, *args, **kw) -> bool:
+    """Draw a figure with `plot` (an `io.results` function); where
+    matplotlib is missing, say on stderr that no figure was written and
+    return False."""
+    try:
+        plot(*args, **kw)
+    except ModuleNotFoundError as err:
+        if (err.name or "").split(".")[0] != "matplotlib":
+            raise
+        print(f"no figure written to {args[-1] if args else kw.get('out_path')}: "
+              f"matplotlib is not installed", file=sys.stderr, flush=True)
+        return False
+    return True
+
+
+def _device(args, cmd: str):
+    from .device import resolve_device
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(f"{cmd}: {err}")
 
 
 def _add_common(p):
@@ -73,14 +105,10 @@ def sweep_config_key(args, params) -> str:
 
 def cmd_sparc_sweep(args):
     from .config import DecodeParams
-    from .device import resolve_device
     from .io.results import ResultsStore
     from .parallel.montecarlo import sparc_ber_sweep
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as err:
-        raise SystemExit(f"sparc-sweep: {err}")
+    device = _device(args, "sparc-sweep")
     params = sparc_params_from_args(args)
     decode = DecodeParams(t_max=args.t_max)
     snrs = np.linspace(args.snr_start, args.snr_stop, args.num_snrs)
@@ -106,6 +134,103 @@ def cmd_sparc_sweep(args):
             line.update(ler=row["ler"], ver=row["ver"])
         print(json.dumps(line), flush=True)
     return rows
+
+
+# The reference's 36-entry grid-engine parameter table
+# (ldpc_jossy/py/ldpc_awgn.py:6-43), selectable with --sim-id 1..36.
+SIM_PARAM_TABLE = [
+    (std, rate, z, pt)
+    for std, zs in [("802.16", [3, 27, 54, 81]), ("802.11n", [27, 54, 81])]
+    for z in zs
+    for rate, pts in [("1/2", ["A"]),
+                      ("2/3", ["A", "B"] if std == "802.16" else ["A"]),
+                      ("3/4", ["A", "B"] if std == "802.16" else ["A"]),
+                      ("5/6", ["A"])]
+    for pt in pts
+]
+
+
+def campaign_params(args):
+    """The LdpcParams of an ldpc-campaign's arguments (`--sim-id` picks a
+    row of SIM_PARAM_TABLE over --standard/--rate/--z/--ptype)."""
+    from .config import LdpcParams
+    if args.sim_id is not None:
+        if not 1 <= args.sim_id <= len(SIM_PARAM_TABLE):
+            raise SystemExit(f"ldpc-campaign: --sim-id must be in 1..{len(SIM_PARAM_TABLE)}")
+        args.standard, args.rate, args.z, args.ptype = SIM_PARAM_TABLE[args.sim_id - 1]
+    return LdpcParams(standard=args.standard, rate=args.rate, z=args.z, ptype=args.ptype)
+
+
+def campaign_config_key(args, params) -> str:
+    """The campaign store's configuration hash, the JAX CLI's."""
+    return _config_key(params=params, points=args.points, min_errors=args.min_errors,
+                       max_blocks=args.max_blocks, batch=args.batch,
+                       dectype=args.dectype, max_iters=args.max_iters, seed=args.seed)
+
+
+def cmd_ldpc_campaign(args):
+    from .io.results import (ResultsStore, plot_waterfalls, record_to_tuple_line,
+                             records_to_csv)
+    from .parallel.montecarlo import ldpc_waterfall_campaign
+
+    device = _device(args, "ldpc-campaign")
+    params = campaign_params(args)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    # one cell per (configuration, point), holding the state a resume needs
+    # (the next adaptive SNR and the running codeword counter)
+    store = ResultsStore(out / "ldpc_campaign.jsonl")
+    cfg_key = campaign_config_key(args, params)
+    start_point, start_snr, start_ctr = 0, None, 0
+    for p in range(args.points):
+        prev = store.get(f"ldpc:{cfg_key}:p{p}")
+        if prev is None:
+            break
+        start_point, start_snr, start_ctr = p + 1, prev["next_snr"], prev["ctr"]
+
+    def on_point(rec, state):
+        store.append(f"ldpc:{cfg_key}:p{state['point']}",
+                     {"record": list(rec), **state})
+        print(json.dumps({"point": state["point"], "snr": rec[4],
+                          "blocks": rec[5], "block_errs": rec[6]}), flush=True)
+
+    ldpc_waterfall_campaign(
+        params, seed=args.seed, n_measurements=args.points,
+        min_errors=args.min_errors, max_blocks=args.max_blocks, batch=args.batch,
+        dectype=args.dectype, max_iters=args.max_iters, on_point=on_point,
+        start_point=start_point, start_snr=start_snr, start_ctr=start_ctr,
+        device=device)
+
+    # the reference-format files, regenerated from the whole store (every
+    # configuration sharing this --out, in measurement order)
+    recs = [tuple(r["record"]) for r in store.records() if "record" in r]
+    (out / "results.txt").write_text("".join(record_to_tuple_line(r) + "\n"
+                                             for r in recs))
+    records_to_csv(recs, out / "results.csv")
+    _figure(plot_waterfalls, recs, out / "waterfall.png")
+    return recs
+
+
+def cmd_results2csv(args):
+    if args.native:
+        from .native.tools import results2csv_native
+        out = results2csv_native(args.input, args.output)
+    else:
+        from .io.results import results_txt_to_csv
+        out = results_txt_to_csv(args.input, args.output)
+    if args.output is None:
+        sys.stdout.write(out)
+
+
+def cmd_plot_results(args):
+    from .io.results import load_records, plot_waterfalls
+    records = load_records(args.input)
+    if not records:
+        raise SystemExit(f"no measurement records found in {args.input}")
+    if not _figure(plot_waterfalls, records, args.output, metric=args.metric):
+        raise SystemExit(1)
+    print(json.dumps({"records": len(records), "out": args.output,
+                      "metric": args.metric}))
 
 
 def concat_setup(args):
@@ -159,14 +284,10 @@ def concat_meta(args, rate, L_sparc, sp_ldpc, lengths) -> dict:
 
 def cmd_concat_sweep(args):
     from .config import DecodeParams
-    from .device import resolve_device
-    from .io.results import ResultsStore
+    from .io.results import ResultsStore, plot_ber_sweep
     from .parallel.montecarlo import concat_ber_point
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as err:
-        raise SystemExit(f"concat-sweep: {err}")
+    device = _device(args, "concat-sweep")
     ldpc, sp_plain, sp_ldpc, lengths, rate, L_sparc = concat_setup(args)
     decode = DecodeParams(t_max=args.t_max)
     decoders = args.decoders.split(",")
@@ -194,6 +315,8 @@ def cmd_concat_sweep(args):
             store.append(key, row)
             series[d].append(row)
             print(json.dumps(row), flush=True)
+    _figure(plot_ber_sweep, [series[d] for d in decoders], decoders,
+            Path(args.out) / f"{stem}.png")
     if args.save_npz:
         # the reference plotting script's snapshot layout
         # (performance_plots_general.py:138-139): (num_sims, num_snrs) arrays
@@ -266,6 +389,41 @@ def main(argv=None):
                    help="also save the reference's Test_N.npz snapshot layout "
                         "(performance_plots_general.py:138-139)")
     p.set_defaults(fn=cmd_concat_sweep)
+
+    p = sub.add_parser("ldpc-campaign", help="LDPC BER waterfall campaign")
+    _add_common(p)
+    p.add_argument("--sim-id", type=int, default=None,
+                   help="row 1..36 of the reference's grid-engine table "
+                        "(overrides --standard/--rate/--z/--ptype)")
+    p.add_argument("--standard", default="802.11n")
+    p.add_argument("--rate", default="1/2")
+    p.add_argument("--z", type=int, default=27)
+    p.add_argument("--ptype", default="A")
+    p.add_argument("--points", type=int, default=24)
+    p.add_argument("--min-errors", type=int, default=100)
+    p.add_argument("--max-blocks", type=int, default=400000)
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--dectype", default="sumprod2")
+    p.add_argument("--max-iters", type=int, default=200)
+    p.set_defaults(fn=cmd_ldpc_campaign)
+
+    p = sub.add_parser("results2csv", help="convert reference results.txt to CSV")
+    p.add_argument("input")
+    p.add_argument("output", nargs="?", default=None)
+    p.add_argument("--native", action="store_true",
+                   help="use the native C++ converter (native/results2csv.cpp, "
+                        "built with g++) instead of the Python one")
+    p.set_defaults(fn=cmd_results2csv)
+
+    p = sub.add_parser("plot-results",
+                       help="waterfall plots from results.txt or results.csv "
+                            "(the reference's py/disp_res.py)")
+    p.add_argument("input", help="results.txt (tuple lines) or results.csv")
+    p.add_argument("output", nargs="?", default="waterfalls.pdf",
+                   help=".pdf = multi-page per (standard, rate); .png = one figure")
+    p.add_argument("--metric", choices=("ber", "bler"), default="ber",
+                   help="y-axis metric (BLER is computed from the same records)")
+    p.set_defaults(fn=cmd_plot_results)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,7 +1,10 @@
 """Resumable results store and the reference-format record helpers.
 
-Counterpart of `ldpc_sparc_tpu/io/results.py` without its plotting
-functions (they need matplotlib; ROADMAP.md queues them). The JSONL store
+Counterpart of `ldpc_sparc_tpu/io/results.py`, with its three figures
+(`plot_waterfalls`, `plot_standard_comparison`, `plot_ber_sweep`), which
+import matplotlib inside the function: a machine without it keeps every
+other function here and raises ImportError only when asked for a figure.
+The JSONL store
 format is the JAX package's, so either package reads a store the other
 wrote: one JSON object per line, `{"key": ..., **record}`, the last line of
 a key winning on load. The tuple-line and CSV helpers are copies of the
@@ -211,7 +214,7 @@ def load_records(path) -> List[Tuple]:
 
 
 # --------------------------------------------------------------------------
-# derived metrics (disp_res.py equivalents)
+# derived metrics + plotting (disp_res.py:7-131 equivalents)
 # --------------------------------------------------------------------------
 
 def waterfall_metrics(rec: Tuple) -> dict:
@@ -226,3 +229,188 @@ def waterfall_metrics(rec: Tuple) -> dict:
         "ebn0_db": snr - 10.0 * math.log10(R),
         "avg_iters": nit / nblocks if nblocks else 0.0,
     }
+
+
+def plot_waterfalls(records: Iterable[Tuple], out_path,
+                    title: str = "LDPC BER waterfalls", metric: str = "ber"):
+    """BER- (or BLER-) vs-Eb/N0 plot with Shannon-limit anchors
+    (disp_res.py:40-131).
+
+    A .pdf out_path produces a multi-page document, one page per
+    (standard, rate) group (the reference's multi-page PDF export,
+    disp_res.py:7-13); any other extension writes a single combined figure.
+    metric: 'ber' (default) or 'bler' — waterfall_metrics computes both.
+    """
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    assert metric in ("ber", "bler"), metric
+    groups = {}
+    for rec in records:
+        m = waterfall_metrics(rec)
+        key = (m["standard"], m["rate"], m["z"], m["ptype"])
+        groups.setdefault(key, []).append(m)
+
+    def draw(ax, keys):
+        for (std, rate, z, ptype) in keys:
+            ms = sorted(groups[(std, rate, z, ptype)],
+                        key=lambda m: m["ebn0_db"])
+            label = f"{std} {rate} z={z}"
+            if ptype != "A":
+                label += f" type {ptype}"
+            ax.semilogy([m["ebn0_db"] for m in ms],
+                        [max(m[metric], 1e-9) for m in ms],
+                        "o-", label=label)
+            R = round(_rate_float(rate), 3)
+            if R in SHANNON_EBN0_DB:
+                ax.axvline(SHANNON_EBN0_DB[R], ls=":", color="gray", lw=1)
+        ax.set_xlabel("Eb/N0 (dB)")
+        ax.set_ylabel(metric.upper())
+        ax.grid(True, which="both", alpha=0.3)
+        ax.legend(fontsize=8)
+
+    if str(out_path).endswith(".pdf"):
+        from matplotlib.backends.backend_pdf import PdfPages
+        pages = {}
+        for k in groups:
+            pages.setdefault(k[:2], []).append(k)
+        with PdfPages(out_path) as pdf:
+            for (std, rate), keys in sorted(pages.items()):
+                fig, ax = plt.subplots(figsize=(8, 5))
+                draw(ax, sorted(keys))
+                ax.set_title(f"{title}: {std} rate {rate}")
+                fig.tight_layout()
+                pdf.savefig(fig)
+                plt.close(fig)
+        return out_path
+
+    fig, ax = plt.subplots(figsize=(8, 5))
+    draw(ax, sorted(groups))
+    ax.set_title(title)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    return out_path
+
+
+def plot_standard_comparison(records: Iterable[Tuple], out_path,
+                             metric: str = "ber"):
+    """The reference's SECOND disp_res figure family (disp_res.py:96-123):
+    one page per expansion factor z, a 2x2 grid of rate panels, each
+    overlaying the 802.11n and 802.16 (type A/B) waterfalls for that
+    (z, rate) with the Shannon-limit anchor. Pages are emitted for every
+    z present in the records (the reference hardcodes z in {27,54,81}).
+
+    out_path ending in .pdf -> multi-page; otherwise one figure for the
+    z with the most measurements.
+    """
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    assert metric in ("ber", "bler")
+    ms = [waterfall_metrics(rec) for rec in records]
+    zs = sorted({m["z"] for m in ms})
+    rates = sorted({round(_rate_float(m["rate"]), 3) for m in ms})
+
+    def draw_page(fig, z, page_rates):
+        for i, R in enumerate(page_rates):
+            ax = fig.add_subplot(2, 2, i + 1)
+            for std in ("802.11n", "802.16"):
+                ptypes = sorted({m["ptype"] for m in ms
+                                 if m["standard"] == std and m["z"] == z
+                                 and abs(_rate_float(m["rate"]) - R) < 0.01})
+                for ptype in ptypes:
+                    sel = sorted(
+                        (m for m in ms
+                         if m["standard"] == std and m["z"] == z
+                         and abs(_rate_float(m["rate"]) - R) < 0.01
+                         and m["ptype"] == ptype),
+                        key=lambda m: m["ebn0_db"])
+                    if not sel:
+                        continue
+                    # the reference labels the bare standard unless both
+                    # protograph types exist for this (z, rate)
+                    label = std if len(ptypes) == 1 \
+                        else f"{std} type {ptype}"
+                    ax.semilogy([m["ebn0_db"] for m in sel],
+                                [max(m[metric], 1e-9) for m in sel],
+                                "o-", ms=3, label=label)
+            if R in SHANNON_EBN0_DB:
+                ax.axvline(SHANNON_EBN0_DB[R], color="r", lw=1,
+                           label="Shannon limit")
+            ax.set_title(f"Z={z}, R={R:.3f}")
+            ax.set_xlabel("Eb/N0 (dB)")
+            ax.set_ylabel(metric.upper())
+            ax.grid(True, which="both", alpha=0.3)
+            ax.legend(fontsize=7)
+
+    # paginate rates in chunks of four so >4 distinct rates get extra
+    # pages instead of silently disappearing from the 2x2 grid
+    rate_chunks = [rates[i:i + 4] for i in range(0, len(rates), 4)]
+
+    if str(out_path).endswith(".pdf"):
+        from matplotlib.backends.backend_pdf import PdfPages
+        with PdfPages(out_path) as pdf:
+            for z in zs:
+                for chunk in rate_chunks:
+                    fig = plt.figure(figsize=(10, 11))
+                    draw_page(fig, z, chunk)
+                    fig.suptitle(f"Standard comparison, Z={z}")
+                    fig.tight_layout()
+                    pdf.savefig(fig)
+                    plt.close(fig)
+        return out_path
+    best_z = max(zs, key=lambda z: sum(m["z"] == z for m in ms))
+    fig = plt.figure(figsize=(10, 11))
+    draw_page(fig, best_z, rate_chunks[0])
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    return out_path
+
+
+def plot_ber_sweep(rows, labels, out_path, title="BER vs SNR"):
+    """Multi-decoder BER sweep plot (performance_plots_general.py:141-155).
+
+    rows: list (one per decoder) of lists of dicts with 'ber' and an SNR
+    axis — 'snr' (linear, the reference's concat-sweep convention,
+    performance_plots_general.py:96-98) preferred, else 'snr_db'. Rows
+    that also carry 'ber_min'/'ber_max' get the reference's asymmetric
+    min/max error bars (performance_plots_general.py:141-155).
+    """
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(10, 4))
+    floor = 1e-9
+
+    def row_snr(r):
+        # linear snr row by row, so that a series never mixes units; rows
+        # without 'snr' come from older concat stores, which kept the
+        # LINEAR snr under 'snr_db', so the fallback reads it as linear
+        return r["snr"] if "snr" in r else r["snr_db"]
+
+    for series, label in zip(rows, labels):
+        snr = [row_snr(r) for r in series]
+        ber = [max(r["ber"], floor) for r in series]
+        if series and "ber_min" in series[0] and "ber_max" in series[0]:
+            lo = [max(b - max(r["ber_min"], floor), 0.0)
+                  for r, b in zip(series, ber)]
+            hi = [max(max(r["ber_max"], floor) - b, 0.0)
+                  for r, b in zip(series, ber)]
+            ax.errorbar(snr, ber, yerr=[lo, hi], fmt="o-", capsize=3,
+                        label=label)
+            ax.set_yscale("log")
+        else:
+            ax.semilogy(snr, ber, "o-", label=label)
+    ax.set_xlabel("SNR (linear)")
+    ax.set_ylabel("BER")
+    ax.set_title(title)
+    ax.grid(True, which="both", alpha=0.3)
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    return out_path

@@ -16,14 +16,15 @@ class, ldpc_jossy/py/ldpc.py:4-503):
 
 All of the above but `encode` and `decode` is host-side numpy, held
 bit-identical to the JAX package's by `tests/test_torch_ldpc.py`. Tensors
-go to a device on demand and are cached per device. The C++ oracle hooks of
-the JAX package (`decode_ref`, `Lxor`, `Lxfb`) are not carried: the tests
-call the JAX package's.
+go to a device on demand and are cached per device. `decode_ref`, `Lxor`
+and `Lxfb` call the port's own float64 C++ oracle (`native/oracle.py`),
+which K4 is held to on the card.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -176,6 +177,26 @@ class LdpcCode:
         ch = torch.as_tensor(ch, dtype=torch.float32)
         return bp_decode(ch, self.graph, max_iters=max_itcount, method=method,
                          corr_factor=corr_factor, bp_kernel=bp_kernel)
+
+    def Lxor(self, L1: float, L2: float, corrflag: int = 1) -> float:
+        """Pairwise LLR-XOR via the native oracle (API of ldpc.py:492-495)."""
+        from ..native import oracle
+        return oracle.lxor(float(L1), float(L2), corrflag)
+
+    def Lxfb(self, L, corrflag: int = 1):
+        """Extrinsic LLRs via the native oracle (API of ldpc.py:497-503).
+        Returns (aggregate, extrinsic_array)."""
+        from ..native import oracle
+        return oracle.lxfb(np.asarray(L, np.float64), corrflag)
+
+    def decode_ref(self, ch: np.ndarray, max_itcount: int = 200,
+                   dectype: str = "sumprod2",
+                   corr_factor: float = 0.7) -> Tuple[np.ndarray, int]:
+        """Decode one codeword through the native float64 C++ oracle (a port
+        of the reference's c_ldpc.c). Returns (app, iterations)."""
+        from ..native import oracle
+        return oracle.decode(np.asarray(ch, np.float64), self.vdeg, self.cdeg,
+                             self.intrlv, max_itcount, dectype, corr_factor)
 
 
 @functools.lru_cache(maxsize=64)

@@ -53,6 +53,7 @@ calls outside any Pallas kernel.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -236,6 +237,15 @@ class SparcDesign:
     @property
     def E(self) -> int:
         return len(self.rows)
+
+    def with_leaves(self, idx, signs, scale=None, **static) -> "SparcDesign":
+        """This design with the tensor leaves idx, signs (and scale) replaced,
+        carrying every static field (w, offset, the block sides, and so
+        `tall`) unless `static` names new values: a shard of the column
+        blocks passes its rows, its local cols, Lc and LM."""
+        return dataclasses.replace(self, idx=idx, signs=signs,
+                                   scale=self.scale if scale is None else scale,
+                                   **static)
 
     @property
     def device(self) -> torch.device:

@@ -1,8 +1,8 @@
-"""Monte Carlo on one device: the SPARC BER sweep, the concatenated
-LDPC-SPARC sweep point and the LDPC waterfall campaign.
+"""Monte Carlo: the SPARC BER sweep, the concatenated LDPC-SPARC sweep
+point and the LDPC waterfall campaign, on one device or over the 'dp' axis
+of a mesh.
 
-Counterpart of the single-device parts of
-`ldpc_sparc_tpu/parallel/montecarlo.py`:
+Counterpart of `ldpc_sparc_tpu/parallel/montecarlo.py`:
 
 * `sparc_mc_counts` / `sparc_ber_sweep`: SPARC encode -> AWGN -> AMP ->
   count trials (the performance_plots sweep), for every family, real or
@@ -23,8 +23,20 @@ Counterpart of the single-device parts of
   run give identical records.
 
 The streams are not the JAX package's (Threefry cannot be reproduced), so
-the two packages' counters agree statistically, not bit for bit. The mesh
-fan-out is not ported yet (ROADMAP.md).
+the two packages' counters agree statistically, not bit for bit.
+
+`mesh=` (a ('dp', 'sec') mesh of `parallel/mesh.py`; every rank of it
+makes the same call): the trials are padded to a multiple of the dp axis
+and dp rank r takes the r-th contiguous share; padded trials are not
+decoded and count nothing. Ranks that differ only in 'sec' repeat the same
+share. The counters (and the concatenated path's per-trial errors) are
+summed with `all_reduce` over 'dp', so every rank returns the same result,
+and, since a trial is a function of (seed, t) alone, the result of
+`mesh=None`. A campaign batch is a function of (seed, ctr): every dp rank
+draws the whole batch and decodes its share of the codewords, which K4
+decodes one by one, so the records are those of one device; with a mesh
+the campaign reads each batch before the next (no pipelining), as the
+JAX package does. The mesh's device is the default device of each rank.
 """
 
 from __future__ import annotations
@@ -45,6 +57,23 @@ from ..ops.transforms import DesignStack, stack_designs
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
 from ..utils.metrics import location_value_errors
+from .mesh import all_reduce, axis, mesh_device
+
+
+def _share(n: int, mesh):
+    """(lo, hi, dp group) of this rank's share of n items (n padded to a
+    multiple of the dp axis, whose r-th contiguous part rank r takes);
+    (0, n, None) without a mesh."""
+    if mesh is None:
+        return 0, n, None
+    n_dp, r, group = axis(mesh, "dp")
+    per = -(-n // n_dp)
+    return min(r * per, n), min((r + 1) * per, n), group
+
+
+def _mesh_device(device, mesh):
+    return mesh_device(mesh) if device is None and mesh is not None \
+        else resolve_device(device)
 
 
 # --------------------------------------------------------------------------
@@ -54,27 +83,29 @@ from ..utils.metrics import location_value_errors
 def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
                     seed, n_trials: int, n_designs: int | None = None,
                     engine: str = "srht", fwht_mode: str = "ms",
-                    device=None, fused_denoiser: bool | None = None) -> dict:
+                    device=None, fused_denoiser: bool | None = None,
+                    mesh=None) -> dict:
     """Run n_trials independent SPARC encode -> AWGN -> AMP -> count trials.
 
     Trial t: bits then noise from `root_generator(derive(seed, t))`, design
     (seed, t % n_designs) by `engine` ('srht' or 'dft'). The trials of one
     design decode together, as one `decode_batch` call. fused_denoiser: see
-    `models.sparc.amp_decode`.
+    `models.sparc.amp_decode`. mesh: see the module docstring.
 
     Returns the counters bit_errs, bits, sec_errs, sections, frame_errs,
     frames, iters; a modulated code adds loc_errs and val_errs, and its
     section errors are `location_value_errors`'.
     """
-    device = resolve_device(device)
+    device = _mesh_device(device, mesh)
     if n_designs is None:
         n_designs = min(8, n_trials)
+    lo, hi, group = _share(n_trials, mesh)
     designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
     M, K, L = params.M, params.K, params.L
     totals = torch.zeros(6, dtype=torch.int64, device=device)
     for d, design in enumerate(designs):
         gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
-                for t in range(d, n_trials, n_designs)]
+                for t in range(d, n_trials, n_designs) if lo <= t < hi]
         if not gens:
             continue
         bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
@@ -93,6 +124,8 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
             loc_errs = val_errs = torch.zeros((), dtype=torch.int64, device=device)
         totals += torch.stack([bit_errs.sum(), sec_e.sum(), (bit_errs > 0).sum(),
                                t_final.sum(), loc_errs, val_errs])
+    if group is not None:
+        all_reduce(totals, group)
     be, se, fe, it, le, ve = totals.tolist()
     counts = {"bit_errs": be, "bits": n_trials * params.bit_len,
               "sec_errs": se, "sections": n_trials * L,
@@ -104,15 +137,16 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
 
 def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
                     n_trials: int, engine: str = "srht", fwht_mode: str = "ms",
-                    device=None, fused_denoiser: bool | None = None) -> list[dict]:
+                    device=None, fused_denoiser: bool | None = None,
+                    mesh=None) -> list[dict]:
     """BER / SER / FER at each noise level (the performance_plots sweep),
     and LER / VER for a modulated code; point i is seeded (seed, i)."""
-    device = resolve_device(device)
+    device = _mesh_device(device, mesh)
     rows = []
     for i, v in enumerate(np.atleast_1d(awgn_vars)):
         c = sparc_mc_counts(params, decode, float(v), (seed, i), n_trials,
                             engine=engine, fwht_mode=fwht_mode, device=device,
-                            fused_denoiser=fused_denoiser)
+                            fused_denoiser=fused_denoiser, mesh=mesh)
         row = {"awgn_var": float(v),
                "ber": c["bit_errs"] / c["bits"],
                "ser": c["sec_errs"] / c["sections"],
@@ -132,25 +166,28 @@ def sparc_ber_sweep(params: SparcParams, decode: DecodeParams, awgn_vars, seed,
 # --------------------------------------------------------------------------
 
 def concat_mc_designs(codec: ConcatCodec, seed, n_trials: int,
-                      n_designs: int | None = None, device=None) -> DesignStack:
-    """The Monte Carlo's designs, one per trial: trial t's is
-    (seed, t % n_designs), n_designs = min(8, n_trials) by default. The
-    n_designs designs are built once and their leaves gathered per trial."""
+                      n_designs: int | None = None, device=None,
+                      first: int = 0) -> DesignStack:
+    """The Monte Carlo's designs, one per trial of trials first ..
+    first + n_trials - 1: trial t's is (seed, t % n_designs), n_designs =
+    min(8, n_trials) by default. The n_designs designs are built once and
+    their leaves gathered per trial."""
     device = resolve_device(device)
     if n_designs is None:
         n_designs = min(8, n_trials)
-    didx = torch.arange(n_trials, device=device) % n_designs
+    didx = torch.arange(first, first + n_trials, device=device) % n_designs
     return codec.build_designs(seed, n_designs, device).for_trials(didx)
 
 
 def concat_mc_transmit(codec: ConcatCodec, designs: DesignStack, awgn_var: float,
-                       seed, fwht_kernel: bool = True):
+                       seed, fwht_kernel: bool = True, first: int = 0):
     """(user_bits (B, user_bits_len) int32, ys (B, n)) of the B = designs.D
-    trials: trial t draws its user bits, then its noise, from
-    `root_generator(derive(seed, t))`; the bits are LDPC-encoded, spread by
-    trial t's design and sent over AWGN."""
+    trials first .. first + B - 1: trial t draws its user bits, then its
+    noise, from `root_generator(derive(seed, t))`; the bits are LDPC-encoded,
+    spread by trial t's design (row t - first of `designs`) and sent over
+    AWGN."""
     gens = [rngmod.root_generator(rngmod.derive(seed, t), designs.device)
-            for t in range(designs.D)]
+            for t in range(first, first + designs.D)]
     user_bits = torch.stack([bitops.random_bits(g, codec.user_bits_len)
                              for g in gens]).to(torch.int32)
     _, beta0 = codec.message_vector(user_bits)
@@ -165,7 +202,7 @@ def concat_mc_trial_errors(sparc_params: SparcParams, ldpc_params: LdpcParams,
                            n_trials: int, decoder: str = "sequential",
                            n_designs: int | None = None, device=None,
                            fwht_kernel: bool = True,
-                           bp_kernel: bool = True) -> np.ndarray:
+                           bp_kernel: bool = True, mesh=None) -> np.ndarray:
     """Per-trial user-bit error counts of n_trials encode -> AWGN -> AMP + BP
     trials, decoded as one `ConcatCodec.decode_batch` call.
 
@@ -174,28 +211,40 @@ def concat_mc_trial_errors(sparc_params: SparcParams, ldpc_params: LdpcParams,
     so entry t is a function of (seed, t) alone. Returns an (n_trials,)
     int64 numpy array (divide by `ConcatCodec.user_bits_len` for the
     per-run BERs, whose min and max are the reference's error bars).
+    With a mesh, dp rank r decodes its share of the trials and the errors
+    come back on every rank through one all_reduce.
     """
-    device = resolve_device(device)
+    device = _mesh_device(device, mesh)
     codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
-    designs = concat_mc_designs(codec, seed, n_trials, n_designs, device)
-    user_bits, ys = concat_mc_transmit(codec, designs, awgn_var, seed, fwht_kernel)
-    bits_out = codec.decode_batch(ys, designs, decode_params, decoder,
-                                  fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
-    return (user_bits != bits_out).sum(-1).cpu().numpy()
+    if n_designs is None:
+        n_designs = min(8, n_trials)
+    lo, hi, group = _share(n_trials, mesh)
+    errs = torch.zeros(n_trials, dtype=torch.int64, device=device)
+    if hi > lo:
+        designs = concat_mc_designs(codec, seed, hi - lo, n_designs, device, first=lo)
+        user_bits, ys = concat_mc_transmit(codec, designs, awgn_var, seed,
+                                           fwht_kernel, first=lo)
+        bits_out = codec.decode_batch(ys, designs, decode_params, decoder,
+                                      fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
+        errs[lo:hi] = (user_bits != bits_out).sum(-1)
+    if group is not None:
+        all_reduce(errs, group)
+    return errs.cpu().numpy()
 
 
 def concat_ber_point(sparc_params: SparcParams, ldpc_params: LdpcParams,
                      lengths: ConcatLengths, ldpc_protected: bool,
                      decode_params: DecodeParams, awgn_var: float, seed,
                      n_trials: int, decoder: str = "sequential", device=None,
-                     fwht_kernel: bool = True, bp_kernel: bool = True) -> dict:
+                     fwht_kernel: bool = True, bp_kernel: bool = True,
+                     mesh=None) -> dict:
     """One sweep point: mean, min and max BER over n_trials (the aggregation
     of performance_plots_general.py:120-126)."""
     codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
     errs = concat_mc_trial_errors(
         sparc_params, ldpc_params, lengths, ldpc_protected, decode_params,
         awgn_var, seed, n_trials, decoder, device=device,
-        fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
+        fwht_kernel=fwht_kernel, bp_kernel=bp_kernel, mesh=mesh)
     bers = errs / codec.user_bits_len
     return {"ber": float(np.mean(bers)), "ber_min": float(np.min(bers)),
             "ber_max": float(np.max(bers)),
@@ -211,16 +260,17 @@ def concat_ber_point(sparc_params: SparcParams, ldpc_params: LdpcParams,
 
 def _batch_counts(code: LdpcCode, snr_db: float, gen: torch.Generator,
                   batch: int, max_iters: int, dectype: str,
-                  bp_kernel: bool) -> torch.Tensor:
+                  bp_kernel: bool, part: slice = slice(None)) -> torch.Tensor:
     """Encode, transmit and decode one batch of random codewords; returns
     (bit_errs, block_errs, iters) summed over the batch, as one (3,) int64
-    tensor on the generator's device (one copy to read back)."""
+    tensor on the generator's device (one copy to read back). `part`: the
+    codewords to decode; the whole batch is drawn all the same."""
     dev = gen.device
     sigma2 = 1.0 / 10 ** (snr_db / 10.0)
     u = torch.randint(0, 2, (batch, code.K), generator=gen, device=dev,
                       dtype=torch.int32)
-    x = code.encode(u)
-    noise = torch.randn(batch, code.N, generator=gen, device=dev)
+    noise = torch.randn(batch, code.N, generator=gen, device=dev)[part]
+    x = code.encode(u[part])
     y = (1.0 - 2.0 * x.to(torch.float32)) + math.sqrt(sigma2) * noise  # BPSK
     llr = (2.0 / sigma2) * y                      # ch2llr (ldpc_awgn.py:51-53)
     method = "minsum" if dectype == "minsum" else "sumprod"
@@ -236,13 +286,17 @@ def _batch_generator(seed, ctr: int, device) -> torch.Generator:
 
 def _ldpc_block_counts(code: LdpcCode, snr_db: float, seed, ctr: int,
                        batch: int, max_iters: int, dectype: str, device=None,
-                       bp_kernel: bool = True):
+                       bp_kernel: bool = True, mesh=None):
     """Decode one batch of random codewords at SNR (dB); returns
     (bit_errs, block_errs, iters) summed over trials ctr..ctr+batch, read
-    back in one device-to-host copy."""
+    back in one device-to-host copy. With a mesh, dp rank r decodes its
+    share of the batch and the counters are summed over 'dp'."""
+    lo, hi, group = _share(batch, mesh)
     out = _batch_counts(code, snr_db,
-                        _batch_generator(seed, ctr, resolve_device(device)),
-                        batch, max_iters, dectype, bp_kernel)
+                        _batch_generator(seed, ctr, _mesh_device(device, mesh)),
+                        batch, max_iters, dectype, bp_kernel, slice(lo, hi))
+    if group is not None:
+        all_reduce(out, group)
     be, bl, it = out.tolist()
     return be, bl, it
 
@@ -255,7 +309,7 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
                             max_iters: int = 200, pipelined: bool = True,
                             on_point=None, bp_kernel: bool = True,
                             start_point: int = 0, start_snr=None,
-                            start_ctr: int = 0, device=None):
+                            start_ctr: int = 0, device=None, mesh=None):
     """Adaptive-SNR BER waterfall measurement (sim(), ldpc_awgn.py:60-123).
 
     Per SNR point, decodes batches of `batch` random codewords on `device`
@@ -282,7 +336,8 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
     """
     code = get_code(ldpc_params.standard, ldpc_params.rate, ldpc_params.z,
                     ldpc_params.ptype)
-    device = resolve_device(device)
+    device = _mesh_device(device, mesh)
+    pipelined = pipelined and mesh is None
     R = ldpc_params.rate_float
     snr = 10.0 * np.log10(2.0 ** R - 1.0) + c_awgn_offset
     if start_snr is not None:
@@ -313,7 +368,7 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
     def read(fut, snr_now, ctr0):
         if not pipelined:
             return _ldpc_block_counts(code, snr_now, seed, ctr0, batch,
-                                      max_iters, dectype, device, bp_kernel)
+                                      max_iters, dectype, device, bp_kernel, mesh)
         host, done = fut
         if done is not None:
             done.synchronize()

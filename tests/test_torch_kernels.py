@@ -745,3 +745,123 @@ def test_campaign_point_matches_its_artifact(snr):
     assert bp_cuda.LAUNCHES - before == rec[5] // cfg["protocol"]["batch"]
     table = artifacts.compare_campaign_point(cfg, rec)
     assert len(table) >= 2 and all(c["ok"] for c in table), table
+
+
+def _oracle_llrs(code, n, snr_db=2.0, seed=0):
+    """tests/test_ldpc.py's protocol: per codeword its bits, then its noise,
+    from one numpy generator; float64 LLRs."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sigma2 = 1.0 / 10 ** (snr_db / 10)
+    rows = []
+    for _ in range(n):
+        x = code.encode(torch.as_tensor(rng.integers(0, 2, code.K))).numpy()
+        rows.append(2.0 / sigma2 * ((1.0 - 2.0 * x) + rng.normal(0, sigma2 ** 0.5, code.N)))
+    return np.stack(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dectype", ["sumprod", "sumprod2", "minsum"])
+def test_bp_decode_kernel_matches_the_ports_oracle(dectype):
+    """K4 through `LdpcCode.decode` against the port's float64 C++ oracle
+    (`decode_ref`): iterations and decisions equal on every codeword."""
+    import numpy as np
+    dev = _card()
+    code = get_code("802.11n", "1/2", 27)
+    llr = _oracle_llrs(code, 32)
+    before = bp_cuda.LAUNCHES
+    res = code.decode(torch.as_tensor(llr, dtype=torch.float32, device=dev), 60, dectype)
+    assert bp_cuda.LAUNCHES - before == 1
+    its, dec = res.iterations.cpu().numpy(), (res.app < 0).cpu().numpy()
+    for i, row in enumerate(llr):
+        app, it = code.decode_ref(row, 60, dectype)
+        assert its[i] == it, i
+        np.testing.assert_array_equal(dec[i], app < 0)
+
+
+@pytest.mark.cuda
+def test_ldpc_campaign_cli_resumes_on_the_card(tmp_path):
+    """`ldpc-campaign` through K4: a store cut after its first point and
+    rerun gives the uninterrupted run's records and files."""
+    from ldpc_sparc_tpu_torch import cli
+    _card()
+    argv = ["ldpc-campaign", "--sim-id", "7", "--points", "3", "--batch", "64",
+            "--max-iters", "50", "--min-errors", "10", "--device", "cuda"]
+    recs = cli.main(argv + ["--out", str(tmp_path / "a")])
+    lines = (tmp_path / "a" / "ldpc_campaign.jsonl").read_text().splitlines(keepends=True)
+    (tmp_path / "b").mkdir()
+    (tmp_path / "b" / "ldpc_campaign.jsonl").write_text(lines[0])
+    before = bp_cuda.LAUNCHES
+    assert cli.main(argv + ["--out", str(tmp_path / "b")]) == recs
+    # each point's batches and the speculative one the pipelined loop discards
+    assert bp_cuda.LAUNCHES - before == sum(r[5] for r in recs[1:]) // 64 + len(recs[1:])
+    for name in ("ldpc_campaign.jsonl", "results.txt", "results.csv"):
+        assert (tmp_path / "a" / name).read_text() == (tmp_path / "b" / name).read_text()
+
+
+SC_SMALL = dict(P=15.0, R=1.2, L=64, M=32, spatially_coupled=True, omega=2, Lambda=8)
+
+
+def _sharded_counts_on_card(dp, sec):
+    """A rank's counters of the sharded step on SC_SMALL (spawned by
+    `run_ranks`)."""
+    from ldpc_sparc_tpu_torch.parallel.mesh import make_mesh
+    from ldpc_sparc_tpu_torch.parallel.sharded import make_sharded_sim_step
+    mesh = make_mesh(dp, sec, device="cuda")
+    step, _ = make_sharded_sim_step(SparcParams(**SC_SMALL), DecodeParams(t_max=20), 1.0,
+                                    mesh, seed=3)
+    before = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+    out = step([(3, t) for t in range(8)])
+    return out, (wht_cuda.LAUNCHES - before[0], denoiser_cuda.LAUNCHES - before[1])
+
+
+@pytest.mark.cuda
+def test_mesh_of_one_on_the_card():
+    """A world of one (NCCL, no launcher): the Monte Carlos equal mesh=None,
+    and the sharded decode(y) equals `decode_batch` through K1 + K3."""
+    import numpy as np
+    import torch.distributed as dist
+    from ldpc_sparc_tpu_torch import concat_mc_trial_errors, param_calc
+    from ldpc_sparc_tpu_torch.parallel.mesh import make_mesh
+    from ldpc_sparc_tpu_torch.parallel.montecarlo import sparc_mc_counts
+    from ldpc_sparc_tpu_torch.parallel.sharded import make_sharded_sim_step
+    dev = _card()
+    mesh = make_mesh()
+    try:
+        p, dec = SparcParams(P=15.0, R=1.0, L=64, M=512), DecodeParams(t_max=12)
+        assert sparc_mc_counts(p, dec, 1.0, 2, 6, mesh=mesh) == \
+            sparc_mc_counts(p, dec, 1.0, 2, 6, device=dev)
+        ldpc = LdpcParams(standard="802.16", rate="1/2", z=12)
+        _, _, L, lengths = param_calc(2, 2, ldpc, 0.5, 1.0, get_code("802.16", "1/2", 12).K)
+        args = (SparcParams(P=19.44, R=1.0, L=L, M=4), ldpc, lengths, True,
+                DecodeParams(t_max=8), 19.44 / 6.0, 2, 6, "integrated")
+        np.testing.assert_array_equal(concat_mc_trial_errors(*args, mesh=mesh),
+                                      concat_mc_trial_errors(*args, device=dev))
+        sc, dsc = SparcParams(**SC_SMALL), DecodeParams(t_max=20)
+        design = SparcDesign.for_params(sc, 1.0, 3, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        beta0 = bitops.bits_to_msg_vector(bitops.random_bits(gen, 8 * sc.bit_len)
+                                          .reshape(8, -1), sc.M)
+        y = design.ab(beta0) + torch.randn(8, design.n, generator=gen, device=dev)
+        step, _ = make_sharded_sim_step(sc, dsc, 1.0, mesh, seed=3)
+        before = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+        bs, ts = step.decode(y)
+        assert wht_cuda.LAUNCHES > before[0] and denoiser_cuda.LAUNCHES > before[1]
+        bu, tu = sparc.decode_batch(y, design, sc, dsc, 1.0)
+        conv = tu < 19
+        assert int(conv.sum()) >= 4
+        assert torch.equal(bs[conv], bu[conv]) and int((ts - tu).abs().max()) <= 1
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_two_ranks_of_one_card():
+    """The section-sharded step at (1,2), two ranks on the one card through
+    gloo, gives the counters of (1,1)."""
+    from ldpc_sparc_tpu_torch.parallel.mesh import run_ranks
+    _card()
+    [(one, l1)] = run_ranks(_sharded_counts_on_card, 1, 1, 1, backend="nccl", timeout=300)
+    two = run_ranks(_sharded_counts_on_card, 2, 1, 2, backend="gloo", timeout=300)
+    assert two[0][0] == two[1][0] == one, (one, two)
+    assert min(l1) > 0 and min(two[0][1]) > 0
