@@ -55,6 +55,20 @@ products), and drives and times the paths `bench.py` times:
     the section-sharded step on the SC code at (1,1), its `decode(y)`
     against `decode_batch`, and the step at (1,2) on two ranks on this
     one card through gloo, whose counters must equal (1,1)'s (phase 19).
+  * slice G, the rest of the TPU kernels' range: K2 with float32 operands
+    bit-exact on ternary rows and within 2.5e-6 of its plain version at the
+    SC and headline shapes, timed beside the cuBLAS float32 pair; the SC
+    decode through it (path A, 64 codewords) against the plain path and
+    timed beside K1 and bf16 K2; the headline decode through it (path B);
+    `sparc-sweep --fwht-mode 2mm_f32` on the SC code and at two rows of
+    `sc_sweep.json` (phase 20). K3 at sections of 2^13, 2^16 and 2^20
+    against its plain version, and a SPARC of L=64, M=8192 (path C, 256
+    codewords) through K1 and K3 against the plain path, both timed (phase
+    21). The port's three examples at full size: `sparc_demo`, one run a
+    family; `sc_decode_wave` through K2 with float32 operands;
+    `concat_probes` at z=150, 3 seeds, held to `concat_probes_tpu.json`,
+    and each of its trials through K1 and K4 held to the plain path before
+    and after BP (phase 22).
 
 Each phase prints one line. The line before the last is a JSON
 summary of the kernels, each with its time, its plain version's, the least
@@ -190,6 +204,40 @@ CAMPAIGN_CLI = ["ldpc-campaign", "--sim-id", "7", "--points", "4", "--batch", "5
                 "--device", "cuda"]
 CAMPAIGN_CUT = 2           # the points the cut store keeps
 MESH_TRIALS = 16           # sparc_mc_counts at the headline shape on the mesh
+
+# slice G: K2 with float32 operands (path A: the SC code above; path B: the
+# headline) and K3 at M >= 8192 (path C). K2 with float32 operands against
+# its plain version, two float32 matmuls with TF32 off: every partial
+# product is exact (three bf16 planes against +-1) and only the float32
+# sums run in another order. max|d| <= 2.5e-6 max|ref|: the kernel reads
+# 2.1e-7 to 1.73e-6 from 2^8 to 2^20, a control without the lo plane 3.25e-6
+# to 4.11e-6 (time_k2.py --mm-dtype float32, 256 rows, PERF.md section 6)
+K2F32_ABS_BOUND = 2.5e-6
+K2F32_TERNARY_LOG_W = (8, 12, 15, 16, 19, 20)
+PATH_C = dict(P=15.0, R=1.0, L=64, M=8192)     # LM = 2^19, n = 832
+PATH_REPS, PATH_WINDOWS = 3, 3
+# K3 against its plain version at (batch, L, M): path C's, and sections
+# held in shared memory no more (2^16) and fewer than the card's 132
+# multiprocessors (2^20, 32 sections)
+K3_LONG_SHAPES = ((BATCH, 64, 1 << 13), (16, 16, 1 << 16), (4, 8, 1 << 20))
+# beta_new and sec_en there: rtol as DENOISE_TOL, but an atol far below a
+# softmax entry of 2^20 (about 1e-7), so that every entry is held
+K3_LONG_ATOL = 1e-12
+# phase 20's sweeps: path A's code at SNR 10 and 15 (K2 takes its 2^15
+# windows), and sc_sweep.json's configuration at two of its rows (windows
+# of 2^12: K1 serves them, as the JAX package's chain does)
+F32_SWEEP = ["--P", "15", "--R", "1.5", "--L", "2048", "--M", "512",
+             "--spatially-coupled", "--omega", "6", "--Lambda", "32",
+             "--t-max", str(SC_T_MAX), "--trials", "16", "--num-snrs", "2",
+             "--snr-start", "10", "--snr-stop", "15"]
+SC_SWEEP_ROWS = ("sc_sweep.json", (9.5, 11.0))
+# phase 22: concat_probes against the JAX package's run of it
+PROBES = ("concat_probes_tpu.json", 3, 3.8)     # artifact, seeds, linear SNR
+# and each of its trials through K1 and K4 against the plain path: at most
+# 0.1 % of a trial's user bits decided otherwise at any AMP iteration, before
+# or after BP (tests/test_torch_examples.py holds the plain path to the JAX
+# package's decode_instrumented at this size)
+PROBE_BITS_DIFFER = 1e-3
 
 
 def phase(n, text):
@@ -1575,6 +1623,399 @@ def slice_f(dev, card):
               f"({dt12:.1f} s with start-up)")
 
 
+def slice_g(dev, card):
+    """Phases 20-22; returns the kernels line's rows for K2 with float32
+    operands (at path A's shape) and K3 at M = 8192 (path C's)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import torch
+    from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams, artifacts, cli
+    from ldpc_sparc_tpu_torch.examples import concat_probes, sc_decode_wave, sparc_demo
+    from ldpc_sparc_tpu_torch.models.sparc import awgn_channel, decode_batch
+    from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.utils import bits as bitops
+    from ldpc_sparc_tpu_torch.utils.metrics import bit_error_rate
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def zero():
+        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+
+    def launches():
+        torch.cuda.synchronize()
+        return wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES
+
+    def drive(paths, y, design, params, decode, awgn_var):
+        """Each path's decode of y with the counts zeroed before it and read
+        after it: ({name: (beta, t_final)}, {name: (K1, K2, K3)})."""
+        out, counts = {}, {}
+        for name, kw in paths.items():
+            zero()
+            out[name] = decode_batch(y, design, params, decode, awgn_var, **kw)
+            counts[name] = launches()
+        return out, counts
+
+    def rates(paths, y, design, params, decode, awgn_var):
+        """AMP iterations/s of each path, counted as phase 5 counts them:
+        batch (t_max - 1) PATH_REPS over the best of PATH_WINDOWS windows,
+        the paths in turns."""
+        best = {k: float("inf") for k in paths}
+        for i in range(PATH_WINDOWS):
+            for name in (list(paths) if i % 2 == 0 else list(paths)[::-1]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(PATH_REPS):
+                    decode_batch(y, design, params, decode, awgn_var, **paths[name])
+                torch.cuda.synchronize()
+                best[name] = min(best[name], time.perf_counter() - t)
+        n = y.shape[0] * (decode.t_max - 1) * PATH_REPS
+        return {k: (n / v, v) for k, v in best.items()}
+
+    def gate(out, beta0, batch, L_):
+        """Section errors of each path; the kernel paths' decisions equal to
+        the plain path's and t_final within 1 of it."""
+        errs = {}
+        for name, (beta, _) in out.items():
+            if beta.shape != beta0.shape or not bool(torch.isfinite(beta).all()):
+                raise AssertionError(f"{name}: wrong shape or not finite")
+            errs[name] = int((beta != beta0).reshape(batch, L_, -1).any(-1).sum())
+        bp, tp = out["plain"]
+        for name, (beta, t) in out.items():
+            if not torch.equal(beta, bp):
+                raise AssertionError(f"{name} and plain decisions differ")
+            if int((t - tp).abs().max()) > 1:
+                raise AssertionError(f"{name}: t_final differs by more than 1")
+        return errs
+
+    # -- 20: K2 with float32 operands ---------------------------------------------
+    exact = []
+    for log_w in K2F32_TERNARY_LOG_W:
+        w = 1 << log_w
+        x = torch.randint(-1, 2, (4, w), generator=gen, device=dev).float()
+        signs = (torch.randint(0, 2, (2, w), generator=gen, device=dev) * 2 - 1).float()
+        for sg, pre in ((signs, True), (signs, False), (None, True)):
+            got = wht_cuda.fwht_signed_2mm(x, sg, pre, "float32")
+            want = wht_cuda.fwht_signed_ref(x, sg, pre)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 float32 on ternary rows at 2^{log_w} pre={pre} "
+                                     f"signs={sg is not None} is not exact")
+        exact.append(f"2^{log_w}")
+    sc_params = SparcParams(**SC)
+    sc_design = SparcDesign.for_params(sc_params, SC_AWGN, seed=SEED, device=dev)
+    head_signs = (torch.randint(0, 2, (1, 1 << 19), generator=gen, device=dev) * 2
+                  - 1).float()
+    f32, f32_text = {}, []
+    for name, rows, signs in (("SC", SC_BATCH * sc_design.E, sc_design.signs),
+                              ("headline", BATCH, head_signs)):
+        w = signs.shape[1]
+        a, b = wht_cuda.split_ab(w)
+        x = torch.randn(rows, w, generator=gen, device=dev)
+        err, ms, plain = 0.0, [], []
+        for pre in (True, False):
+            got = wht_cuda.fwht_signed_2mm(x, signs, pre, "float32")
+            want = wht_cuda.fwht_signed_2mm_ref(x, signs, pre, "float32")
+            torch.cuda.synchronize()
+            e, lim = float((got - want).abs().max()), K2F32_ABS_BOUND * float(want.abs().max())
+            del got, want
+            if not e <= lim:
+                raise AssertionError(f"K2 float32 vs plain at {name} pre={pre}: {e} > {lim}")
+            err = max(err, e)
+            ms.append(cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, signs, pre, "float32"),
+                              reps=10))
+            plain.append(cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, signs, pre,
+                                                                       "float32"),
+                                 reps=2, warmup=1))
+        passes = [cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, signs, True, "float32",
+                                                           passes=p), reps=10)
+                  for p in (1, 2)]
+        ha = wht_cuda.hadamard_factor(a, torch.float32, dev)
+        hb = wht_cuda.hadamard_factor(b, torch.float32, dev)
+        xv = x.reshape(rows, a, b)
+        lib = cuda_ms(lambda: ha @ (xv @ hb), reps=5)
+        del x, xv
+        # x and y once, the signs once; three bf16 products a float32 one
+        bound = least_ms(4 * (2 * rows * w + signs.shape[0] * w),
+                         3 * 2 * rows * (a * b * b + a * a * b), BF16_FLOPS)
+        f32[name] = dict(err=err, ms=sum(ms) / 2, plain_ms=sum(plain) / 2, lib=lib,
+                         bound=bound)
+        f32_text.append(
+            f"{name} ({rows}, 2^{w.bit_length() - 1}): max|d| {err:.2e}, pre / post "
+            f"{ms[0]:.4f} / {ms[1]:.4f} ms (pass 1 {passes[0]:.4f}, pass 2 "
+            f"{passes[1]:.4f}), plain {plain[0]:.4f} / {plain[1]:.4f} ms, cuBLAS float32 "
+            f"pair {lib:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+
+    # path A: the SC decode through K2 with float32 operands
+    decode = DecodeParams(t_max=SC_T_MAX)
+    beta0, y = sc_inputs(sc_design, sc_params, SC_BATCH, dev)
+    paths = {"K1+K3": {}, "K2+K3": dict(fwht_mode="2mm"),
+             "K2f32+K3": dict(fwht_mode="2mm_f32"),
+             "plain": dict(fused_denoiser=False, fwht_kernel=False)}
+    out, counts_a = drive(paths, y, sc_design, sc_params, decode, SC_AWGN)
+    it = SC_T_MAX - 1
+    if counts_a["K2f32+K3"] != (0, 2 * it - 1, it):
+        raise AssertionError(f"path A launches (K1, K2, K3) {counts_a['K2f32+K3']}")
+    del out["K2+K3"]   # bf16 operands: held to section errors only, in phase 10
+    sec_a = gate(out, beta0, SC_BATCH, sc_params.L)
+    if sec_a["plain"] != 0 or sec_a["K2f32+K3"] > sec_a["plain"]:
+        raise AssertionError(f"path A section errors {sec_a}")
+    tf_a = {k: f"{int(t.min())}-{int(t.max())}" for k, (_, t) in out.items()}
+    del paths["plain"]
+    rate_a = rates(paths, y, sc_design, sc_params, decode, SC_AWGN)
+    del y, beta0, out
+
+    # path B: the headline decode through K2 with float32 operands
+    params = SparcParams(P=P, R=R, L=L, M=M)
+    decode = DecodeParams(t_max=T_MAX)
+    design = SparcDesign.for_params(params, AWGN_VAR, seed=SEED, device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(SEED)
+    bits = bitops.random_bits(g2, BATCH * params.bit_len).reshape(BATCH, params.bit_len)
+    beta0 = bitops.bits_to_msg_vector(bits, M)
+    y = awgn_channel(design.ab(beta0), AWGN_VAR, g2)
+    paths = {"K1+K3": {}, "K2f32+K3": dict(fwht_mode="2mm_f32"),
+             "plain": dict(fused_denoiser=False, fwht_kernel=False)}
+    out, counts_b = drive(paths, y, design, params, decode, AWGN_VAR)
+    if counts_b["K2f32+K3"] != (0, 2 * (T_MAX - 1) - 1, T_MAX - 1):
+        raise AssertionError(f"path B launches (K1, K2, K3) {counts_b['K2f32+K3']}")
+    ber_b = float(bit_error_rate(bits, bitops.msg_vector_to_bits(out["K2f32+K3"][0], M))
+                  .mean())
+    if ber_b != 0.0:
+        raise AssertionError(f"path B BER {ber_b}")
+    gate(out, beta0, BATCH, L)
+    del paths["plain"]
+    rate_b = rates(paths, y, design, params, decode, AWGN_VAR)
+    del y, beta0, out
+
+    # sparc-sweep --fwht-mode 2mm_f32: path A's code, then sc_sweep.json's rows
+    def sweep(flags, out_dir):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = cli.main(["sparc-sweep", *flags, "--fwht-mode", "2mm_f32",
+                             "--device", "cuda", "--out", out_dir])
+        return rows, buf.getvalue()
+
+    sc_cfg, sc_tmax, _ = artifacts.sweep_config(SC_SWEEP_ROWS[0])
+    art_flags = ["--P", str(sc_cfg.P), "--R", str(sc_cfg.R), "--L", str(sc_cfg.L),
+                 "--M", str(sc_cfg.M), "--spatially-coupled", "--omega", str(sc_cfg.omega),
+                 "--Lambda", str(sc_cfg.Lambda), "--t-max", str(sc_tmax), "--trials",
+                 str(artifacts.sweep_config(SC_SWEEP_ROWS[0])[2][0]["frames"]),
+                 "--num-snrs", "2", "--snr-start", str(SC_SWEEP_ROWS[1][0]),
+                 "--snr-stop", str(SC_SWEEP_ROWS[1][1])]
+    with tempfile.TemporaryDirectory() as tmp:
+        zero()
+        t0 = time.perf_counter()
+        rows_a, _ = sweep(F32_SWEEP, tmp)
+        dt_a, k_a = time.perf_counter() - t0, launches()
+        zero()
+        t0 = time.perf_counter()
+        rows_s, _ = sweep(art_flags, tmp)
+        dt_s, k_s = time.perf_counter() - t0, launches()
+        again, printed = sweep(art_flags, tmp)
+        with open(os.path.join(tmp, "sparc_sweep.jsonl")) as f:
+            n_lines = sum(1 for ln in f if ln.strip())
+    if printed.strip() or again != rows_s or n_lines != 4:
+        raise AssertionError(f"sparc-sweep rerun decoded again: {printed!r}, {n_lines} rows")
+    if k_a[1] == 0 or k_s[1] != 0 or k_s[0] == 0:
+        raise AssertionError(f"sparc-sweep launches (K1, K2, K3): path A {k_a}, "
+                             f"sc_sweep {k_s}")
+    rows_a.sort(key=lambda r: r["snr"])
+    if not rows_a[1]["ber"] <= rows_a[0]["ber"]:
+        raise AssertionError(f"sparc-sweep BER rises with SNR: {rows_a}")
+    table = []
+    for c in artifacts.compare_sweep(SC_SWEEP_ROWS[0], rows_s):
+        if not c["ok"]:
+            raise AssertionError(f"sparc-sweep 2mm_f32 against {SC_SWEEP_ROWS[0]}: {c}")
+        table.append(f"SNR {c['snr']:g} {c['key']} {c['port']:.6g} (artifact "
+                     f"{c['artifact']:.6g}, bound {c['bound']:.3g})")
+    phase(20, f"K2 with float32 operands on {card}: bit-exact on ternary rows at "
+              f"{', '.join(exact)} (pre, post, no signs); Gaussian rows against plain "
+              f"(max|d| <= {K2F32_ABS_BOUND:g} max|ref|): " + "; ".join(f32_text)
+              + f" | path A, the SC decode of phase 10 (batch {SC_BATCH}): section errors "
+              f"{sec_a}, decisions equal to plain, t_final {tf_a}, launches (K1, K2, K3) "
+              f"{counts_a} | sc_amp_iterations_per_s "
+              + ", ".join(f"{k} {v[0]:.1f} (best window {v[1]:.4f} s)"
+                          for k, v in rate_a.items())
+              + f" | path B, the headline through it: BER {ber_b}, decisions equal to plain, "
+              f"launches {counts_b['K2f32+K3']}, sparc_amp_iterations_per_s "
+              + ", ".join(f"{k} {v[0]:.1f} (best window {v[1]:.4f} s)"
+                          for k, v in rate_b.items())
+              + f" | sparc-sweep --fwht-mode 2mm_f32 on path A's code, 16 trials: "
+              f"{dt_a:.1f} s, launches {k_a}, "
+              + ", ".join(f"SNR {r['snr']:g} BER {r['ber']:.3e} FER {r['fer']:.3f}"
+                          for r in rows_a)
+              + f"; at {SC_SWEEP_ROWS[0]}'s configuration ({dt_s:.1f} s, launches {k_s}, "
+              f"rerun decoding nothing): " + "; ".join(table))
+
+    # -- 21: K3 at sections of 8192 and more ---------------------------------------
+    k3, k3_text = {}, []
+    for Bk, Lk, Mk in K3_LONG_SHAPES:
+        beta = torch.softmax(3 * torch.randn(Bk, Lk, Mk, generator=gen, device=dev),
+                             -1).reshape(Bk, -1)
+        azo = 2 * torch.randn(Bk, Lk * Mk, generator=gen, device=dev)
+        tau = 0.5 + 1.5 * torch.rand(Bk, Lk, generator=gen, device=dev)
+        got = denoiser_cuda.fused_denoise_update(beta, azo, tau, Mk)
+        want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, Mk)
+        torch.cuda.synchronize()
+        errs = []
+        for key, g, w_ in zip(DENOISE_TOL, got, want):
+            torch.testing.assert_close(g, w_, rtol=DENOISE_TOL[key][0],
+                                       atol=DENOISE_TOL[key][1] if key == "s"
+                                       else K3_LONG_ATOL)
+            errs.append(float((g - w_).abs().max()))
+        del got, want
+        n = Bk * Lk * Mk
+        k3[Mk] = dict(err=max(errs),
+                      ms=cuda_ms(lambda: denoiser_cuda.fused_denoise_update(beta, azo,
+                                                                            tau, Mk)),
+                      plain_ms=cuda_ms(lambda: denoiser_cuda.fused_denoise_update_ref(
+                          beta, azo, tau, Mk), reps=3),
+                      bound=least_ms(4 * (4 * n + 2 * Bk * Lk), 8 * n))
+        k3_text.append(f"({Bk}, {Lk}, 2^{Mk.bit_length() - 1}): max|d| s {errs[0]:.2e} "
+                       f"beta_new {errs[1]:.2e} sec_en {errs[2]:.2e}, "
+                       f"{k3[Mk]['ms']:.4f} ms (plain {k3[Mk]['plain_ms']:.4f} ms, bound "
+                       f"{k3[Mk]['bound']['bound_ms']:.4f} ms by "
+                       f"{k3[Mk]['bound']['bound_by']})")
+        del beta, azo, tau
+
+    # path C: L=64, M=8192 through K1 and K3
+    params = SparcParams(**PATH_C)
+    design = SparcDesign.for_params(params, AWGN_VAR, seed=SEED, device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(SEED)
+    bits = bitops.random_bits(g2, BATCH * params.bit_len).reshape(BATCH, params.bit_len)
+    beta0 = bitops.bits_to_msg_vector(bits, params.M)
+    y = awgn_channel(design.ab(beta0), AWGN_VAR, g2)
+    paths = {"K1+K3": {}, "plain": dict(fused_denoiser=False, fwht_kernel=False)}
+    out, counts_c = drive(paths, y, design, params, decode, AWGN_VAR)
+    if counts_c["K1+K3"] != (2 * (T_MAX - 1) - 1, 0, T_MAX - 1):
+        raise AssertionError(f"path C launches (K1, K2, K3) {counts_c['K1+K3']}")
+    ber_c = {k: float(bit_error_rate(bits, bitops.msg_vector_to_bits(b, params.M)).mean())
+             for k, (b, _) in out.items()}
+    if any(v != 0.0 for v in ber_c.values()):
+        raise AssertionError(f"path C BER {ber_c}")
+    gate(out, beta0, BATCH, params.L)
+    tf_c = {k: f"{int(t.min())}-{int(t.max())}" for k, (_, t) in out.items()}
+    rate_c = rates(paths, y, design, params, decode, AWGN_VAR)
+    del y, beta0, out
+    phase(21, f"K3 at long sections on {card}, against plain (s rtol "
+              f"{DENOISE_TOL['s'][0]:g}, beta_new and sec_en rtol "
+              f"{DENOISE_TOL['beta_new'][0]:g}, atol {K3_LONG_ATOL:g}): " + "; ".join(k3_text)
+              + f" | path C L={params.L} M={params.M} R={params.R} batch {BATCH} (n "
+              f"{design.n}, w 2^{design.w.bit_length() - 1}): BER {ber_c}, decisions equal "
+              f"to plain, t_final {tf_c}, launches (K1, K2, K3) {counts_c} | AMP "
+              f"iterations/s " + ", ".join(f"{k} {v[0]:.1f} (best window {v[1]:.4f} s)"
+                                           for k, v in rate_c.items()))
+
+    # -- 22: the examples ----------------------------------------------------------
+    name, seeds, snr = PROBES
+    with tempfile.TemporaryDirectory() as tmp:
+        def example(module, *argv):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = module.main([*argv, "--json", os.path.join(tmp, "r.json"),
+                                   "--out", os.path.join(tmp, "f.png")])
+            with open(os.path.join(tmp, "r.json")) as f:
+                if json.load(f) != json.loads(json.dumps(res)):
+                    raise AssertionError(f"{module.__name__} wrote another JSON")
+            return res, time.perf_counter() - t0
+
+        demo, dt_demo = example(sparc_demo, "--runs", "1")
+        if len(demo["configs"]) != 4 or any(
+                len(c["ber"]) != 1 or not 0 <= c["ber"][0] <= 1
+                or len(c["nmse"]) != demo["t_max"]
+                for c in demo["configs"].values()):
+            raise AssertionError(f"sparc_demo: {demo['configs']}")
+        zero()
+        wave, dt_wave = example(sc_decode_wave, "--reps", "1", "--fwht-mode", "2mm_f32")
+        k_wave = launches()
+        if k_wave[1] == 0 or k_wave[2] == 0:
+            raise AssertionError(f"sc_decode_wave launches (K1, K2, K3) {k_wave}")
+        zero()
+        bp_cuda.LAUNCHES = 0
+        probes, dt_probes = example(concat_probes, "--seeds", str(seeds), "--snr", str(snr))
+        k_probes = (launches()[0], bp_cuda.LAUNCHES)
+        if 0 in k_probes:
+            raise AssertionError(f"concat_probes launches (K1, K4) {k_probes}")
+    # the probes need BP: every trial again, through K1 and K4 and plain
+    codec, probe_dec = concat_probes.problem(False)
+    ubits, awgn = codec.user_bits_len, codec.sparc.P / snr
+    differ, apart, errs = 0, 0, {}
+    for seed in range(seeds):
+        runs = {}
+        for decoder in concat_probes.DECODERS:
+            ub, k = concat_probes.trial(codec, probe_dec, seed, awgn, decoder, dev)
+            _, p = concat_probes.trial(codec, probe_dec, seed, awgn, decoder, dev,
+                                       fwht_kernel=False, bp_kernel=False)
+            for key in ("pre_bp", "post_bp"):
+                differ = max(differ, int((k[key] != p[key]).sum(-1).max()))
+                errs[decoder, key] = (errs.get((decoder, key), 0)
+                                      + (k[key] != ub).sum(-1).cpu().numpy())
+            runs[decoder] = k
+        apart += sum(int((runs["naive"][key] != runs["integrated"][key]).sum())
+                     for key in ("pre_bp", "post_bp"))
+    if differ > PROBE_BITS_DIFFER * ubits:
+        raise AssertionError(f"concat_probes through K1 and K4: {differ} of {ubits} user "
+                             "bits decided unlike the plain path")
+    for (decoder, key), e in errs.items():
+        # the example's probes are these trials' error counts
+        if [round(v * seeds * ubits) for v in probes["probes"][decoder][key]] != e.tolist():
+            raise AssertionError(f"concat_probes {decoder} {key}: the example's probes are "
+                                 f"not its trials' error counts {e.tolist()}")
+    art = artifacts.load(name)
+    if (art["config"]["z"], art["config"]["snr"], art["config"]["seeds"]) != (
+            probes["config"]["z"], snr, seeds):
+        raise AssertionError(f"{name} is another configuration: {art['config']}")
+    n_bits = seeds * probes["config"]["user_bits"]
+    probe_text = []
+    for dec in concat_probes.DECODERS:
+        got, want = probes["probes"][dec], art["probes"][dec]
+        bound = artifacts.two_sample_bound(got["pre_bp"][0], n_bits, want["pre_bp"][0],
+                                           n_bits)
+        if not abs(got["pre_bp"][0] - want["pre_bp"][0]) <= bound:
+            raise AssertionError(f"concat_probes {dec}: first pre-BP BER "
+                                 f"{got['pre_bp'][0]} against {want['pre_bp'][0]}, bound "
+                                 f"{bound}")
+        probe_text.append(
+            f"{dec}: first pre-BP BER {got['pre_bp'][0]:.5f} (artifact "
+            f"{want['pre_bp'][0]:.5f}, bound {bound:.4f}); not gated, pre / post-BP at "
+            "iterations 2, 5, 10, 25: " + ", ".join(
+                f"{got['pre_bp'][i]:.4f} / {got['post_bp'][i]:.4f} ({want['pre_bp'][i]:.4f}"
+                f" / {want['post_bp'][i]:.4f})" for i in (1, 4, 9, 24)))
+    phase(22, f"examples on {card}: sparc_demo, one run a family ({dt_demo:.1f} s): "
+              + "; ".join(f"{k} BER {v['ber'][0]:.4g} t_final {v['t_final'][0]} "
+                          f"({v['wall_s_per_run'][0]:.3f} s)"
+                          for k, v in demo["configs"].items())
+              + f" | sc_decode_wave L=2048 M=512 through K2 with float32 operands "
+              f"({dt_wave:.1f} s): first run {wave['wall_s_first_run']:.3f} s, steady "
+              f"{wave['wall_s_steady'][0]:.3f} s, {wave['iterations']} iterations, BER "
+              f"{wave['ber']:.3g}, launches (K1, K2, K3) {k_wave} | concat_probes z=150 "
+              f"{seeds} seeds snr {snr} ({dt_probes:.1f} s, launches (K1, K4) {k_probes}) "
+              f"against {name}: " + "; ".join(probe_text)
+              + f" | each trial through K1 and K4 against the plain path: at most {differ} of "
+              f"{ubits} user bits decided otherwise at any iteration, before or after BP "
+              f"(bound {PROBE_BITS_DIFFER * ubits:g}); naive and integrated apart on {apart} "
+              f"of {2 * seeds * probe_dec.t_max * ubits} decisions; post-BP errors at iteration "
+              f"{probe_dec.t_max} over the trials: naive {errs['naive', 'post_bp'][-1]}, "
+              f"integrated {errs['integrated', 'post_bp'][-1]}")
+
+    return [
+        {"name": "fwht_signed_2mm_f32", "route": "cuda",
+         "source": "ldpc_sparc_tpu_torch/csrc/fwht_2mm.cu",
+         "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:103",
+         "launches": counts_a["K2f32+K3"][1],
+         "max_abs_err": max(v["err"] for v in f32.values()),
+         "ms": f32["SC"]["ms"], "plain_ms": f32["SC"]["plain_ms"], **f32["SC"]["bound"],
+         "library_ms": f32["SC"]["lib"]},
+        {"name": "fused_denoise_update_m8192", "route": "cuda",
+         "source": "ldpc_sparc_tpu_torch/csrc/denoise_update.cu",
+         "replaces": "ldpc_sparc_tpu/ops/denoiser_pallas.py:67",
+         "launches": counts_c["K1+K3"][2], "max_abs_err": k3[1 << 13]["err"],
+         "ms": k3[1 << 13]["ms"], "plain_ms": k3[1 << 13]["plain_ms"],
+         **k3[1 << 13]["bound"], "library_ms": None},
+    ]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1796,6 +2237,7 @@ def main():
     slice_e_kernels = slice_e(dev, card)
     sweeps_and_campaign(dev, card)
     slice_f(dev, card)
+    slice_g_kernels = slice_g(dev, card)
     # K1 as the main path launches it: the two fused products, averaged. Each
     # reads or writes the (rows, w) side once, the (rows, k) side once, the
     # (E, w) signs and the (E, k) int32 indices; w log2(w) adds a row.
@@ -1823,7 +2265,7 @@ def main():
          "library_ms": None},
     ]
     kernels.insert(1, k2)
-    kernels += [k4, k1_d, k4_d, *slice_e_kernels]
+    kernels += [k4, k1_d, k4_d, *slice_e_kernels, *slice_g_kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@
 Counterparts of `ldpc_sparc_tpu/cli.py`'s five subcommands, with their
 flags less `--platform` (here `--device`: the card by default, an error
 where there is none, `--device cpu` for the CPU), plus `--fwht-mode
-{ms,2mm}` and `--no-fused-denoiser` on `sparc-sweep`, which takes every
+{ms,2mm,2mm_f32}` and `--no-fused-denoiser` on `sparc-sweep`, which takes every
 family: `--modulated --K 2|4|8` (K > 2 is complex), `--complex`, and
 `--design-engine dft` for complex plain codes. Rows go to the resumable
 JSONL stores `<out>/sparc_sweep.jsonl`, `<out>/ldpc_campaign.jsonl` and
@@ -17,8 +17,8 @@ JSONL stores `<out>/sparc_sweep.jsonl`, `<out>/ldpc_campaign.jsonl` and
 into the same `--out` returns the stored rows instead of decoding them
 again, whichever package wrote them. The design engine, `fwht_mode` and
 the denoiser tail join the SPARC configuration key only when they are not
-the defaults: another ensemble, K2's bf16 operands and the plain tail's
-stop are different computations.
+the defaults: another ensemble, K2's bf16 or float32 operands and the
+plain tail's stop are different computations.
 
 `ldpc-campaign` resumes after the last stored point of its configuration
 and then rewrites `<out>/results.txt` and `<out>/results.csv` from the
@@ -357,9 +357,11 @@ def main(argv=None):
     p.add_argument("--design-engine", choices=("srht", "dft"), default="srht",
                    help="design ensemble: the real SRHT (every family) or the "
                         "reference's complex subsampled DFT (complex plain codes)")
-    p.add_argument("--fwht-mode", choices=("ms", "2mm"), default="ms",
+    p.add_argument("--fwht-mode", choices=("ms", "2mm", "2mm_f32"), default="ms",
                    help="design-product transform: ms = K1 (float32), "
-                        "2mm = K2 (bf16 operands, two tensor-core products)")
+                        "2mm = K2 (bf16 operands, two tensor-core products), "
+                        "2mm_f32 = K2 with float32 operands; K2 only on full "
+                        "offset-0 windows of 2^14 to 2^20, K1 elsewhere")
     p.add_argument("--no-fused-denoiser", action="store_true",
                    help="take the plain denoiser tail, whose stop fires where "
                         "the JAX package's does (the fused tail K3 may stop one "

@@ -49,6 +49,23 @@
 //   T in shared memory (a x (b + 8)), Y strip by strip, signs read as a
 //   float plane.
 //
+// Float32 operands (mm_dtype "float32", the TPU kernel's float32 operand
+// type; ldpc_fwht_2mm_f32): Y = H_a . (X . H_b) with T = X . H_b kept in
+// float32. Each float32 operand v is split into three bf16 planes, hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), rounded to nearest
+// with no contraction: each residual has at most 15, then 7 significant
+// bits, so v = hi + mid + lo exactly for |v| above about 2^-100. H holds only
+// +-1, so every partial product is exact; a product is three bf16 mma.sync
+// passes into one float32 accumulator, lo first, then mid, then hi (the
+// small terms summed before the large), and differs from a float32 matmul
+// only in the order of its float32 sums. Two launches of one pass kernel at
+// every width (2^8 to 2^20): pass 1 applies H_b along the rows of the
+// (R a, b) view (pre-signs as X is read) and writes T into y; pass 2 applies
+// H_a along the columns of each row's (a, b) view in place (post-signs as Y
+// is written): a block reads its whole tile into shared memory before it
+// writes the same entries back. T crosses device memory in float32: 16w
+// bytes a row.
+//
 // What bounds it: at w = 2^15 the two products are 2(a b^2 + a^2 b) =
 // 25.2 MFLOP per row against 8w = 256 KB of traffic, 96 FLOP per byte,
 // under the card's ~295 for bf16: memory-bound. At 2^19 (a = 512,
@@ -101,6 +118,15 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const uint16_t* p) {
+  const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(at)
+      : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const uint16_t* p) {
@@ -920,7 +946,277 @@ cudaError_t run_wg_cols(int log_a, long long rows, const uint16_t* t,
   }
 }
 
+// ---- float32 operands: three bf16 planes -------------------------------------
+
+// The three planes of the pair (a, b), each a bf16x2 with a in the low half:
+// q[0] = hi, q[1] = mid, q[2] = lo, a = hi + mid + lo exactly.
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&q)[3]) {
+  q[0] = bf16x2(a, b);
+  const float ra = __fsub_rn(a, __uint_as_float(q[0] << 16));
+  const float rb = __fsub_rn(b, __uint_as_float(q[0] & 0xFFFF0000u));
+  q[1] = bf16x2(ra, rb);
+  q[2] = bf16x2(__fsub_rn(ra, __uint_as_float(q[1] << 16)),
+                __fsub_rn(rb, __uint_as_float(q[1] & 0xFFFF0000u)));
+}
+
+constexpr int kF32Threads = 256;
+
+// A pass's tile in shared memory: three planes (hi, mid, lo) of OUTER rows
+// of INNER bf16, INNER the direction that is contiguous in device memory
+// (k for pass 1, the vectors for pass 2), 8 bf16 of padding a row so that
+// the 8 rows of an ldmatrix hit distinct banks.
+template <int LOG_N, int LOG_C, bool STRIDED>
+struct F32Tile {
+  static constexpr int N = 1 << LOG_N;
+  static constexpr int C = 1 << LOG_C;
+  static constexpr int OUTER = STRIDED ? N : C;
+  static constexpr int INNER = STRIDED ? C : N;
+  static constexpr int PITCH = INNER + 8;
+  static constexpr int PLANE = OUTER * PITCH;
+  static constexpr int SMEM = 3 * PLANE * static_cast<int>(sizeof(uint16_t));
+};
+
+// One pass of the float32-operand K2: out_v = H_N . in_v for vectors v of
+// N = 2^LOG_N entries, a tile of C = 2^LOG_C vectors a block.
+//   STRIDED false (pass 1): vector v is entries v N .. v N + N - 1 of x
+//     (nvec vectors, the last tile may be short); sign entry of (v, k):
+//     (v mod E a) N + k, with a = 2^log_q here.
+//   STRIDED true (pass 2): in row r of 2^log_q N entries, vector (r, q) is
+//     entries r N Q + k Q + q, k < N (Q = 2^log_q, C divides Q); sign entry
+//     (r mod E) N Q + k Q + q.
+// sign_in multiplies the entries by their signs as they are read, sign_out
+// as they are written. x and y may be one array: a block reads its whole
+// tile before it writes the same entries.
+//
+// The mma is D (vectors x outputs) = A (vectors x k, the data, ldmatrix
+// from a plane; .trans where the vectors run along the plane's rows) . B (k
+// x outputs, H_N, built in registers as in product1). A warp owns a 16-vector
+// m-tile and up to 8 n-tiles of outputs, and runs the k loop three times,
+// once a plane, lo first.
+template <int LOG_N, int LOG_C, bool STRIDED>
+__global__ void __launch_bounds__(kF32Threads)
+fwht2mm_f32_pass_kernel(const float* x, const float* __restrict__ signs, float* y,
+                        long long nvec, int log_q, int E, int sign_in, int sign_out) {
+  using T = F32Tile<LOG_N, LOG_C, STRIDED>;
+  constexpr int N = T::N;
+  constexpr int C = T::C;
+  constexpr int NT = N / 8;                   // n-tiles of 8 outputs
+  constexpr int NCH = NT < 8 ? NT : 8;        // n-tiles a warp holds at once
+  constexpr int MT = C / 16;
+  constexpr int ITEMS = MT * (NT / NCH);
+  constexpr int KU = N / 16 < 4 ? N / 16 : 4;   // k-tiles of a group, unrolled
+  extern __shared__ __align__(16) uint16_t f32_smem[];
+  __shared__ long long svec[STRIDED ? 1 : C];   // pass 1: sign offset of each vector
+  const long long tile = blockIdx.x;
+  const long long Q = 1LL << log_q;
+  long long base, kstride, cstride, soff = 0;
+  int nc = C;
+  if (!STRIDED) {
+    const long long v0 = tile * C;
+    base = v0 * N;
+    kstride = 1;
+    cstride = N;
+    nc = static_cast<int>(nvec - v0 < C ? nvec - v0 : C);
+    if (sign_in | sign_out) {
+      const long long period = static_cast<long long>(E) << log_q;   // E a vectors
+      for (int c = threadIdx.x; c < C; c += kF32Threads) svec[c] = ((v0 + c) % period) * N;
+    }
+  } else {
+    const long long per_row = Q / C;
+    const long long r = tile / per_row;
+    const long long q0 = (tile % per_row) * C;
+    base = r * N * Q + q0;
+    kstride = Q;
+    cstride = 1;
+    soff = (r % E) * N * Q + q0;
+  }
+  __syncthreads();
+  // the sign entry of (vector c, entry k) of the tile
+  auto sign_at = [&](int c, int k) -> long long {
+    return STRIDED ? soff + k * Q + c : svec[c] + k;
+  };
+
+  // the tile, split into its three planes; float4 pieces along INNER
+  for (int u = threadIdx.x; u < C * N / 4; u += kF32Threads) {
+    const int o = (4 * u) / T::INNER;
+    const int in = (4 * u) % T::INNER;
+    const int c = STRIDED ? in : o;
+    const int k = STRIDED ? o : in;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c < nc) {
+      v = *reinterpret_cast<const float4*>(x + base + c * cstride + k * kstride);
+      if (sign_in) {
+        const float4 sg = *reinterpret_cast<const float4*>(signs + sign_at(c, k));
+        v.x *= sg.x;
+        v.y *= sg.y;
+        v.z *= sg.z;
+        v.w *= sg.w;
+      }
+    }
+    uint32_t p0[3], p1[3];
+    split3(v.x, v.y, p0);
+    split3(v.z, v.w, p1);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      *reinterpret_cast<uint2*>(f32_smem + q * T::PLANE + o * T::PITCH + in) =
+          make_uint2(p0[q], p1[q]);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // B fragments of H_16's columns 0-7 and 8-15, as in product1
+  uint32_t hb[2][2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    hb[p][0] = hpair(2 * t, 2 * t + 1, 8 * p + g);
+    hb[p][1] = hpair(2 * t + 8, 2 * t + 9, 8 * p + g);
+  }
+  // this lane's ldmatrix row within a 16 x 16 piece of a plane
+  const int lrow = STRIDED ? (lane & 7) + ((lane >> 4) << 3) : (lane & 15);
+  const int lcol = STRIDED ? ((lane >> 3) & 1) * 8 : (lane >> 4) * 8;
+  for (int item = warp; item < ITEMS; item += kF32Threads / 32) {
+    const int mt = item % MT;
+    const int n0 = (item / MT) * NCH;
+    float acc[NCH][4];
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll 1
+    for (int q = 2; q >= 0; --q) {   // lo, mid, hi
+      const uint16_t* plane = f32_smem + q * T::PLANE;
+      const uint16_t* src = STRIDED ? plane + lrow * T::PITCH + 16 * mt + lcol
+                                    : plane + (16 * mt + lrow) * T::PITCH + lcol;
+#pragma unroll 1
+      for (int kg = 0; kg < N / 16; kg += KU) {
+        // H_N's 16 x 16 tile (kt, J) has the sign (-1)^popcount(kt & J), J =
+        // (n0 + j) / 2 = n0 / 2 + j / 2 with n0 / 2 a multiple of 4 (or 0):
+        // popcount(kg & n0 / 2), one a group, and popcount((kt - kg) & j / 2),
+        // a constant of the unrolled loops; so an mma's B fragments cost two
+        // XORs
+        const uint32_t fg = flip(kg, n0 >> 1);
+#pragma unroll
+        for (int r = 0; r < KU; ++r) {
+          uint32_t a[4];
+          if (STRIDED) {
+            ldsm_x4_trans(a, src + 16 * (kg + r) * T::PITCH);
+          } else {
+            ldsm_x4(a, src + 16 * (kg + r));
+          }
+#pragma unroll
+          for (int j = 0; j < NCH; ++j) {
+            const uint32_t f = fg ^ (parity_c(r & (j >> 1)) ? 0x80008000u : 0u);
+            mma16816(acc[j], a, hb[j & 1][0] ^ f, hb[j & 1][1] ^ f);
+          }
+        }
+      }
+    }
+    // D: rows are vectors (g, g + 8), columns outputs (2t, 2t + 1)
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int i = 8 * (n0 + j) + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 16 * mt + g + 8 * h;
+        if (c >= nc) continue;
+        float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+        if (sign_out) {
+          v0 *= signs[sign_at(c, i)];
+          v1 *= signs[sign_at(c, i + 1)];
+        }
+        if (STRIDED) {
+          y[base + c + i * kstride] = v0;
+          y[base + c + (i + 1) * kstride] = v1;
+        } else {
+          *reinterpret_cast<float2*>(y + base + c * cstride + i) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int LOG_N, int LOG_C, bool STRIDED>
+cudaError_t launch_f32_pass(const float* x, const float* signs, float* y, long long nvec,
+                            long long tiles, int log_q, int E, int sign_in, int sign_out,
+                            cudaStream_t st) {
+  return launch(fwht2mm_f32_pass_kernel<LOG_N, LOG_C, STRIDED>, tiles, kF32Threads,
+                F32Tile<LOG_N, LOG_C, STRIDED>::SMEM, st, x, signs, y, nvec, log_q, E,
+                sign_in, sign_out);
+}
+
+// Pass 1 at a row width 2^log_w: H_b along the R a rows of b entries, tiles
+// of 2^min(14 - log b, 8) rows.
+cudaError_t run_f32_pass1(int log_w, long long rows, const float* x, const float* signs,
+                          float* y, int E, int pre, cudaStream_t st) {
+  const int log_a = log_w / 2;
+  const long long nvec = rows << log_a;
+  switch (log_w - log_a) {
+#define LDPC_F32_P1(LB)                                                             \
+  case LB: {                                                                        \
+    constexpr int LC = 14 - LB < 8 ? 14 - LB : 8;                                   \
+    return launch_f32_pass<LB, LC, false>(x, signs, y, nvec,                        \
+                                          (nvec + (1 << LC) - 1) >> LC, log_a, E,   \
+                                          pre, 0, st);                              \
+  }
+    LDPC_F32_P1(4) LDPC_F32_P1(5) LDPC_F32_P1(6) LDPC_F32_P1(7) LDPC_F32_P1(8)
+    LDPC_F32_P1(9) LDPC_F32_P1(10)
+#undef LDPC_F32_P1
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Pass 2: H_a along the columns of each row's (a, b) view, in place on y,
+// tiles of 2^min(14 - log a, 8, log b) columns.
+cudaError_t run_f32_pass2(int log_w, long long rows, const float* signs, float* y, int E,
+                          int post, cudaStream_t st) {
+  const int log_a = log_w / 2;
+  const int log_b = log_w - log_a;
+  switch (log_w) {
+#define LDPC_F32_P2(LW)                                                             \
+  case LW: {                                                                        \
+    constexpr int LA = LW / 2, LB = LW - LW / 2;                                    \
+    constexpr int LC0 = 14 - LA < 8 ? 14 - LA : 8;                                  \
+    constexpr int LC = LC0 < LB ? LC0 : LB;                                         \
+    return launch_f32_pass<LA, LC, true>(y, signs, y, 0, rows << (LB - LC), log_b, \
+                                         E, 0, post, st);                           \
+  }
+    LDPC_F32_P2(8) LDPC_F32_P2(9) LDPC_F32_P2(10) LDPC_F32_P2(11) LDPC_F32_P2(12)
+    LDPC_F32_P2(13) LDPC_F32_P2(14) LDPC_F32_P2(15) LDPC_F32_P2(16) LDPC_F32_P2(17)
+    LDPC_F32_P2(18) LDPC_F32_P2(19) LDPC_F32_P2(20)
+#undef LDPC_F32_P2
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// y = H_a . (x * s . H_b) (apply_pre) or (H_a . (x . H_b)) * s with float32
+// operands (three bf16 planes each) over rows of length 2^log_w, 8 <= log_w
+// <= 20; signs null or (E, 2^log_w), row r using sign row r % E. passes: 3
+// runs the transform; 1 runs pass 1 alone (x -> T in y) and 2 pass 2 alone
+// (in place on y), for timing. x, y and signs must be 16-byte aligned, x
+// and y must not overlap, and E * 2^log_w must stay below 2^31. Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int ldpc_fwht_2mm_f32(const float* x, const float* signs, float* y,
+                                 long long rows, int log_w, int E, int apply_pre,
+                                 int passes, void* stream) {
+  cudaGetLastError();  // clear a stale error of an earlier call
+  if (rows <= 0 || E <= 0 || rows % E != 0 || log_w < 8 || log_w > 20 ||
+      passes < 1 || passes > 3 || (static_cast<long long>(E) << log_w) >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int pre = signs != nullptr && apply_pre;
+  const int post = signs != nullptr && !apply_pre;
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) err = run_f32_pass1(log_w, rows, x, signs, y, E, pre, st);
+  if (err == cudaSuccess && (passes & 2)) err = run_f32_pass2(log_w, rows, signs, y, E, post, st);
+  return static_cast<int>(err);
+}
 
 // y = H_a . bf16(bf16(x * s) . H_b) (apply_pre) or (H_a . bf16(bf16(x) . H_b)) * s
 // over rows of length 2^log_w, 8 <= log_w <= 20, on the (a, b) view of each

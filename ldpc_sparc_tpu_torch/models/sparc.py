@@ -13,8 +13,9 @@ decoder's state takes y's type: complex64 for complex y, else float32.
 Kernels on the path (both run when the tensors are on a card, and their
 plain versions run on the CPU):
   * the signed FWHT of both SRHT design products (`ops/wht_cuda.py`): K1
-    with `fwht_mode="ms"` (the default), K2 with `fwht_mode="2mm"` on real
-    data; complex data runs K1 on stacked real rows;
+    with `fwht_mode="ms"` (the default), K2 with `fwht_mode="2mm"` (bf16 operands)
+    or `"2mm_f32"` (float32 operands) on real data; complex data runs K1 on
+    stacked real rows;
   * the fused denoiser tail (`ops/denoiser_cuda.py`), for real K=1 codes
     whenever the shape is eligible and `fused_denoiser` is not False.
 """
@@ -119,8 +120,9 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     fused_denoiser: None takes the fused tail (`fused_denoise_update`)
     whenever `fused_eligible` holds, True demands it, False takes the
     plain `mmse_denoise` tail. fwht_kernel=False runs the design products
-    on the plain FWHT chain. fwht_mode: "ms" (K1, float32) or "2mm" (K2,
-    bf16 operands), the JAX package's `set_fwht_backend` mode.
+    on the plain FWHT chain. fwht_mode: "ms" (K1, float32), "2mm" (K2,
+    bf16 operands) or "2mm_f32" (K2, float32 operands), the JAX package's
+    `set_fwht_backend` mode and dtype.
 
     Every base-matrix family takes this one loop: the plain code (W is
     1 x 1), power allocation (1 x B) and spatial coupling (Lr x Lc), whose E

@@ -9,7 +9,10 @@ fused_denoise_update`. Per section of M entries, with tau = tau_sec[..., l]:
 
 On a CUDA tensor the kernel of `csrc/denoise_update.cu` runs, or the call
 raises; on a CPU tensor `fused_denoise_update_ref` runs. `LAUNCHES` counts
-the kernel's launches.
+the kernel's launches. The kernel takes every power of two M from 32 to
+2^22, the JAX kernel's range (`denoiser_pallas.use_fused_denoiser` with
+`config.py`'s powers of two): up to 4096 one block holds a section in
+registers, from 8192 one block of 1024 threads walks it three times.
 """
 
 from __future__ import annotations
@@ -20,12 +23,13 @@ from .. import _build
 from ..config import is_power_of_2
 
 LAUNCHES = 0
+MIN_M, MAX_M = 32, 1 << 22
 
 
 def fused_eligible(M: int, K: int, is_complex: bool) -> bool:
     """Shapes the fused tail takes: real, unmodulated (K=1), and M a power of
-    two in [32, 4096] (one block of at most 1024 threads per section)."""
-    return K == 1 and not is_complex and is_power_of_2(M) and 32 <= M <= 4096
+    two in [32, 2^22] (one block per section)."""
+    return K == 1 and not is_complex and is_power_of_2(M) and MIN_M <= M <= MAX_M
 
 
 def fused_denoise_update_ref(beta: torch.Tensor, azo: torch.Tensor,
@@ -51,7 +55,7 @@ def _check(beta, azo, tau_sec, M) -> None:
         raise ValueError(f"shapes {tuple(beta.shape)}, {tuple(azo.shape)}, "
                          f"{tuple(tau_sec.shape)} do not fit M={M}")
     if not fused_eligible(M, 1, False):
-        raise ValueError(f"M={M} is not a power of two in [32, 4096]")
+        raise ValueError(f"M={M} is not a power of two in [{MIN_M}, 2^22]")
 
 
 def fused_denoise_update(beta: torch.Tensor, azo: torch.Tensor,

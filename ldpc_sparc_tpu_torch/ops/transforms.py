@@ -22,12 +22,15 @@ plain versions (zero fill, `scatter_`, the Kronecker chain of
 any device; they are the reference the kernel path is measured against.
 
 `fwht_mode` picks the transform, as the JAX package's `set_fwht_backend`
-mode does: "ms" (the default) is K1, float32 throughout; "2mm" is K2
-(`ops/wht_cuda.fwht_signed_2mm`), the two-sided H_a . X . H_b form with
-bf16 operands, whose plain version rounds where the kernel does. "2mm"
-takes K2 only where the JAX package routes its Pallas kernel
-(`wht_pallas.use_pallas_srht`): a full offset-0 window of width 2^14 to
-2^20. Every other transform stays float32 (K1), as it does there.
+mode and dtype do: "ms" (the default) is K1, float32 throughout; "2mm" is
+K2 (`ops/wht_cuda.fwht_signed_2mm`), the two-sided H_a . X . H_b form with
+bf16 operands, whose plain version rounds where the kernel does;
+"2mm_f32" is K2 with float32 operands (JAX's mode "2mm" with dtype
+"float32"). "2mm" and "2mm_f32" take K2 only where the JAX package routes
+its Pallas kernel (`wht_pallas.use_pallas_srht`): a full offset-0 window
+of width 2^14 to 2^20. Every other transform stays float32 (K1), as it
+does there. The port's K1 is float32 in every mode, so JAX's dtype knob
+has no other counterpart.
 
 Products take leading batch dimensions: `ab` maps (..., L*M) to (..., n)
 and `az` maps (..., n) to (..., L*M), with one transform call per product
@@ -54,6 +57,7 @@ calls outside any Pallas kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -67,19 +71,23 @@ from .wht_cuda import (fwht_signed, fwht_signed_2mm, fwht_signed_2mm_ref,
 from ..config import SparcParams, create_base_matrix
 from ..device import resolve_device
 
-FWHT_MODES = ("ms", "2mm")
-# log2 widths at which "2mm" takes K2: the JAX package's Pallas bounds
-# (wht_pallas._MIN_LOG_W, _MAX_LOG_W)
+FWHT_MODES = ("ms", "2mm", "2mm_f32")
+# log2 widths at which "2mm" and "2mm_f32" take K2: the JAX package's Pallas
+# bounds (wht_pallas._MIN_LOG_W, _MAX_LOG_W)
 K2_SRHT_LOG_W = (14, 20)
 
 
 def fwht_transform(fwht_mode: str = "ms", fwht_kernel: bool = True):
-    """The signed-FWHT function srht_apply calls: K1 ("ms") or K2 ("2mm"),
-    or their plain versions when fwht_kernel is False."""
+    """The signed-FWHT function srht_apply calls: K1 ("ms") or K2 with bf16
+    ("2mm") or float32 ("2mm_f32") operands, or their plain versions when
+    fwht_kernel is False."""
     if fwht_mode == "ms":
         return fwht_signed if fwht_kernel else fwht_signed_ref
-    if fwht_mode == "2mm":
-        return fwht_signed_2mm if fwht_kernel else fwht_signed_2mm_ref
+    if fwht_mode in ("2mm", "2mm_f32"):
+        fn = fwht_signed_2mm if fwht_kernel else fwht_signed_2mm_ref
+        if fwht_mode == "2mm_f32":
+            fn = functools.partial(fn, mm_dtype="float32")
+        return fn
     raise ValueError(f"fwht_mode must be one of {FWHT_MODES}, got {fwht_mode!r}")
 
 

@@ -52,9 +52,16 @@ kernel and layout are a fixed function of the width too (`k2_layout`;
     16 - 20   "wgmma"  "wide"   crosses device memory in bf16, two launches
 
 `fwht_signed_2mm(..., kernel="mma")` runs the `mma.sync` kernel up to 2^15
-(the yardstick the `wgmma` tile kernel was measured against). The
-kernels take bf16 operands only: `mm_dtype="float32"` runs the plain
-version on a CPU tensor and raises `NotImplementedError` on a CUDA one.
+(the yardstick the `wgmma` tile kernel was measured against).
+
+`mm_dtype="float32"` is the TPU kernel's float32 operand type: T = X . H_b
+stays float32 and no operand is rounded. On a CUDA tensor it runs the
+`mma.sync` pass kernels of `csrc/fwht_2mm.cu` at every width from 2^8 to
+2^20: each float32 operand as three bf16 planes whose sum is exact, two
+launches (H_b along the rows, then H_a along the columns in place), T
+through device memory in float32. Its plain version is
+`fwht_signed_2mm_ref(..., "float32")`, two float32 matmuls; the two differ
+only in the order of their float32 sums.
 """
 
 from __future__ import annotations
@@ -391,11 +398,12 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
                     apply_pre: bool, mm_dtype: str = "bfloat16",
                     kernel: str | None = None, passes: int = 3) -> torch.Tensor:
     """K2: the signed FWHT of each row of x (R, w) as two tensor-core
-    products; see `fwht_signed_2mm_ref`. The kernels take bf16 operands
-    only; the width must lie in [2^8, 2^20] on any device. kernel: None
-    takes `k2_layout`'s, "mma" or "wgmma" runs that kernel or raises
-    ("mma" takes up to 2^15, "wgmma" 2^12 and up). passes (timing only, "wide" layout): 1
-    runs the first launch alone, 2 the second; the result is then not the
+    products; see `fwht_signed_2mm_ref`. The width must lie in [2^8, 2^20]
+    on any device. kernel: None takes `k2_layout`'s, "mma" or "wgmma" runs
+    that kernel or raises ("mma" takes up to 2^15, "wgmma" 2^12 and up);
+    float32 operands run the `mma.sync` pass kernels at every width (None
+    or "mma"). passes (timing only; the "wide" layout or float32 operands):
+    1 runs the first launch alone, 2 the second; the result is then not the
     transform."""
     global LAUNCHES_2MM
     if mm_dtype not in MM_DTYPES:
@@ -406,29 +414,39 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
     _check_width_2mm(x.shape[1])
     log_w = x.shape[1].bit_length() - 1
+    f32 = mm_dtype == "float32"
     table_kernel, layout = k2_layout(log_w)
     if kernel is None:
-        kernel = table_kernel
+        kernel = "mma" if f32 else table_kernel
+    if f32 and kernel != "mma":
+        raise ValueError("float32 operands run the mma.sync pass kernels only "
+                         "(kernel None or 'mma')")
     if kernel == "wgmma" and log_w < WGMMA_MIN_LOG_W:
         raise ValueError(f"the wgmma kernel takes widths from 2^{WGMMA_MIN_LOG_W}, "
                          f"not 2^{log_w}")
-    if kernel == "mma" and layout == "wide":
+    if kernel == "mma" and layout == "wide" and not f32:
         raise ValueError(f"the mma kernel takes widths up to "
                          f"2^{TILE_MAX_LOG_W_2MM}, not 2^{log_w}")
-    if passes not in (1, 2, 3) or (passes != 3 and layout != "wide"):
-        raise ValueError("passes is 3, or 1 or 2 for a width above "
-                         f"2^{TILE_MAX_LOG_W_2MM}")
+    if passes not in (1, 2, 3) or (passes != 3 and layout != "wide" and not f32):
+        raise ValueError("passes is 3, or 1 or 2 for float32 operands or a width "
+                         f"above 2^{TILE_MAX_LOG_W_2MM}")
     if x.device.type == "cpu":
         return fwht_signed_2mm_ref(x, signs, apply_pre, mm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no fwht_signed_2mm kernel for device {x.device}")
-    if mm_dtype != "bfloat16":
-        raise NotImplementedError("the K2 kernel takes bf16 operands only")
     _check(x, signs)
     lib = _build.load()
     R, w = x.shape
     y = torch.empty_like(x)
     if R == 0:
+        return y
+    if f32:
+        status = lib.ldpc_fwht_2mm_f32(
+            x.data_ptr(), None if signs is None else signs.data_ptr(), y.data_ptr(),
+            R, log_w, 1 if signs is None else signs.shape[0], int(apply_pre), passes,
+            _stream(x))
+        _build.check(status, "fwht_signed_2mm")
+        LAUNCHES_2MM += 1
         return y
     scratch = (torch.empty(R, w, dtype=torch.bfloat16, device=x.device)
                if layout == "wide" else None)

@@ -241,6 +241,6 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams, awgn_var: f
     """The ('dp', 'sec')-sharded Monte Carlo step of design seed `seed` on
     `mesh`: (step, n_dp), where step(seeds) runs one trial per seed and
     step.decode(y) decodes given words (`ShardedSimStep`); kw: fwht_mode
-    ("ms", K1, or "2mm", K2, as in `models.sparc.amp_decode`)."""
+    ("ms", K1, or "2mm" / "2mm_f32", K2, as in `models.sparc.amp_decode`)."""
     step = ShardedSimStep(params, decode, awgn_var, mesh, seed, **kw)
     return step, step.n_dp

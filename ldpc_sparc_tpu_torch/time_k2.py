@@ -2,6 +2,7 @@
 
     python -m ldpc_sparc_tpu_torch.time_k2 --log-w 15 --rows 12288 --E 192
     python -m ldpc_sparc_tpu_torch.time_k2 --log-w 19 --rows 256 --kernel wgmma
+    python -m ldpc_sparc_tpu_torch.time_k2 --log-w 15 --rows 12288 --E 192 --mm-dtype float32
 
 For every kernel that takes the width ("mma" up to 2^15, "wgmma" from 2^12; see
 `ops/wht_cuda.py`), or the one named by --kernel: `fwht_signed_2mm` with
@@ -19,6 +20,16 @@ yardstick; the port never calls it). --ptxas prints the compiler's
 register and shared-memory report of K2's kernels and any note that it
 runs a kernel's wgmma instructions one at a time. With --out the numbers
 are also written as JSON. Needs a CUDA device.
+
+--mm-dtype float32 runs K2 with float32 operands (the mma.sync pass
+kernels, two launches at every width, each timed singly too) against its
+plain version `fwht_signed_2mm_ref(..., "float32")` within 2.5e-6 of the
+largest entry (both float32; the sums run in another order); its
+operations are three bf16 products (one a plane) and its yardstick the
+pair of cuBLAS float32 products with TF32 off. Beside each reading stands
+a control's: the plain version with both products' operands cut to their
+two upper bf16 planes (`two_plane_ref`), what K2 computes if it drops the
+lo plane. A sound limit lies between the two readings.
 """
 
 from __future__ import annotations
@@ -36,18 +47,45 @@ from .time_fwht import HBM_BYTES_PER_S, cuda_ms
 
 BF16_FLOPS = 989e12         # H100 SXM, NVIDIA's data sheet, dense bf16
 REL_BOUND = 1e-3
+F32_ABS_BOUND = 2.5e-6      # float32 operands: max|d| / max|ref|
+PLANES = {"bfloat16": 1, "float32": 3}   # bf16 products a float32 product takes
 
 
-def bounds_ms(rows: int, log_w: int, E: int) -> dict:
+def bounds_ms(rows: int, log_w: int, E: int, mm_dtype: str = "bfloat16") -> dict:
     """The byte and operation bounds of one transform of (rows, 2^log_w)."""
     w = 1 << log_w
     a, b = wht_cuda.split_ab(w)
     return {"bytes_ms": 4e3 * (2 * rows * w + E * w) / HBM_BYTES_PER_S,
             "bytes_unsigned_ms": 8e3 * rows * w / HBM_BYTES_PER_S,
-            "operations_ms": 2e3 * rows * (a * b * b + a * a * b) / BF16_FLOPS}
+            "operations_ms": 2e3 * PLANES[mm_dtype] * rows * (a * b * b + a * a * b)
+            / BF16_FLOPS}
 
 
-def run_width(log_w: int, rows: int, E: int, kernels, reps: int) -> dict:
+def two_plane_ref(x: torch.Tensor, signs: torch.Tensor | None,
+                  apply_pre: bool) -> torch.Tensor:
+    """`fwht_signed_2mm_ref(x, signs, apply_pre, "float32")` with X and T
+    each cut to hi + mid, hi = bf16(v), mid = bf16(v - hi)."""
+    def two(v):
+        hi = v.to(torch.bfloat16).float()
+        return hi + (v - hi).to(torch.bfloat16).float()
+
+    R, w = x.shape
+    a, b = wht_cuda.split_ab(w)
+    E = 1 if signs is None else signs.shape[0]
+    xv = x.reshape(R // E, E, a, b)
+    sv = None if signs is None else signs.reshape(E, a, b)
+    if sv is not None and apply_pre:
+        xv = xv * sv
+    ha = wht_cuda.hadamard_factor(a, torch.float32, x.device)
+    hb = wht_cuda.hadamard_factor(b, torch.float32, x.device)
+    y = ha @ two(two(xv) @ hb)
+    if sv is not None and not apply_pre:
+        y = y * sv
+    return y.reshape(R, w)
+
+
+def run_width(log_w: int, rows: int, E: int, kernels, reps: int,
+              mm_dtype: str = "bfloat16") -> dict:
     dev = torch.device("cuda")
     w = 1 << log_w
     gen = torch.Generator(device=dev).manual_seed(log_w)
@@ -55,45 +93,57 @@ def run_width(log_w: int, rows: int, E: int, kernels, reps: int) -> dict:
     xt = torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
     xg = torch.randn(rows, w, generator=gen, device=dev)
     modes = {"pre": (signs, True), "post": (signs, False), "none": (None, False)}
-    out = {"log_w": log_w, "rows": rows, "E": E, **bounds_ms(rows, log_w, E),
-           "kernels": {}}
+    f32 = mm_dtype == "float32"
+    out = {"log_w": log_w, "rows": rows, "E": E, "mm_dtype": mm_dtype,
+           **bounds_ms(rows, log_w, E, mm_dtype), "kernels": {}}
     a, b = wht_cuda.split_ab(w)
-    ha = wht_cuda.hadamard_factor(a, torch.bfloat16, dev)
-    hb = wht_cuda.hadamard_factor(b, torch.bfloat16, dev)
-    xb = xg.reshape(rows, a, b).to(torch.bfloat16)
+    mm = wht_cuda.MM_DTYPES[mm_dtype]
+    ha = wht_cuda.hadamard_factor(a, mm, dev)
+    hb = wht_cuda.hadamard_factor(b, mm, dev)
+    xb = xg.reshape(rows, a, b).to(mm)
     out["library_ms"] = cuda_ms(lambda: ha @ (xb @ hb), reps)
     del xb
-    print(f"2^{log_w} ({rows} rows, E={E}): bound bytes {out['bytes_ms']:.4f} ms "
-          f"({out['bytes_unsigned_ms']:.4f} without signs), operations "
-          f"{out['operations_ms']:.4f} ms; cuBLAS bf16 pair {out['library_ms']:.4f} ms",
-          flush=True)
+    print(f"2^{log_w} ({rows} rows, E={E}, {mm_dtype} operands): bound bytes "
+          f"{out['bytes_ms']:.4f} ms ({out['bytes_unsigned_ms']:.4f} without signs), "
+          f"operations {out['operations_ms']:.4f} ms; cuBLAS {mm_dtype} pair "
+          f"{out['library_ms']:.4f} ms", flush=True)
     for kernel in kernels:
         res = {}
         for m, (sg, pre) in modes.items():
-            got = wht_cuda.fwht_signed_2mm(xt, sg, pre, kernel=kernel)
+            got = wht_cuda.fwht_signed_2mm(xt, sg, pre, mm_dtype, kernel=kernel)
             want = wht_cuda.fwht_signed_ref(xt, sg, pre)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 bad = int((got != want).sum())
                 raise AssertionError(f"K2 2^{log_w} {kernel} {m}: not bit-equal on "
                                      f"ternary rows ({bad} of {got.numel()} entries)")
-            got = wht_cuda.fwht_signed_2mm(xg, sg, pre, kernel=kernel)
-            want = wht_cuda.fwht_signed_2mm_ref(xg, sg, pre)
+            got = wht_cuda.fwht_signed_2mm(xg, sg, pre, mm_dtype, kernel=kernel)
+            want = wht_cuda.fwht_signed_2mm_ref(xg, sg, pre, mm_dtype)
             torch.cuda.synchronize()
-            rel = float((got - want).norm() / want.norm())
+            ctl = None
+            if f32:
+                rel = float((got - want).abs().max() / want.abs().max())
+                bound = F32_ABS_BOUND
+                ctl = float((two_plane_ref(xg, sg, pre) - want).abs().max()
+                            / want.abs().max())
+            else:
+                rel, bound = float((got - want).norm() / want.norm()), REL_BOUND
             del got, want
-            if not rel <= REL_BOUND:
+            if not rel <= bound:
                 raise AssertionError(f"K2 2^{log_w} {kernel} {m}: relative error "
-                                     f"{rel} > {REL_BOUND}")
-            ms = cuda_ms(lambda: wht_cuda.fwht_signed_2mm(xg, sg, pre, kernel=kernel),
-                         reps)
+                                     f"{rel} > {bound}")
+            ms = cuda_ms(lambda: wht_cuda.fwht_signed_2mm(xg, sg, pre, mm_dtype,
+                                                          kernel=kernel), reps)
             res[m] = {"ms": ms, "rel_err": rel}
             text = f"2^{log_w} {kernel:5s} {m:4s}: {ms:.4f} ms, rel {rel:.2e}"
-            if log_w > wht_cuda.TILE_MAX_LOG_W_2MM:
+            if ctl is not None:
+                res[m]["control_rel_err"] = ctl
+                text += f" (control without the lo plane {ctl:.2e})"
+            if f32 or log_w > wht_cuda.TILE_MAX_LOG_W_2MM:
                 for p in (1, 2):
                     res[m][f"launch{p}_ms"] = cuda_ms(
-                        lambda: wht_cuda.fwht_signed_2mm(xg, sg, pre, kernel=kernel,
-                                                         passes=p), reps)
+                        lambda: wht_cuda.fwht_signed_2mm(xg, sg, pre, mm_dtype,
+                                                         kernel=kernel, passes=p), reps)
                 text += (f" (launch 1 {res[m]['launch1_ms']:.4f}, launch 2 "
                          f"{res[m]['launch2_ms']:.4f})")
             print(text, flush=True)
@@ -108,6 +158,8 @@ def main(argv=None) -> None:
     ap.add_argument("--E", type=int, default=1, help="sign rows")
     ap.add_argument("--kernel", choices=wht_cuda.K2_KERNELS, default=None,
                     help="one kernel (default: every kernel that takes the width)")
+    ap.add_argument("--mm-dtype", choices=sorted(wht_cuda.MM_DTYPES), default="bfloat16",
+                    help="K2's operand type (float32: the mma.sync pass kernels)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--out", default=None, help="write the numbers as JSON here")
@@ -133,13 +185,15 @@ def main(argv=None) -> None:
                 print(ln.strip())
     result = {"card": card, "widths": []}
     for log_w in args.log_w:
-        kernels = [args.kernel] if args.kernel else [
-            k for k, (lo, hi) in (("mma", (wht_cuda.MIN_LOG_W_2MM,
-                                           wht_cuda.TILE_MAX_LOG_W_2MM)),
-                                  ("wgmma", (wht_cuda.WGMMA_MIN_LOG_W,
-                                             wht_cuda.MAX_LOG_W_2MM)))
-            if lo <= log_w <= hi]
-        result["widths"].append(run_width(log_w, args.rows, args.E, kernels, args.reps))
+        if args.kernel or args.mm_dtype == "float32":
+            kernels = [args.kernel or "mma"]
+        else:
+            kernels = [k for k, (lo, hi) in (
+                ("mma", (wht_cuda.MIN_LOG_W_2MM, wht_cuda.TILE_MAX_LOG_W_2MM)),
+                ("wgmma", (wht_cuda.WGMMA_MIN_LOG_W, wht_cuda.MAX_LOG_W_2MM)))
+                if lo <= log_w <= hi]
+        result["widths"].append(run_width(log_w, args.rows, args.E, kernels, args.reps,
+                                          args.mm_dtype))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -106,8 +106,8 @@ def test_fused_ref_batched_rows_independent():
 
 @pytest.mark.parametrize("M,K,cx,ok", [
     (512, 1, False, True), (32, 1, False, True), (4096, 1, False, True),
-    (16, 1, False, False), (8192, 1, False, False), (512, 2, False, False),
-    (512, 1, True, False),
+    (16, 1, False, False), (8192, 1, False, True), (1 << 22, 1, False, True),
+    (1 << 23, 1, False, False), (512, 2, False, False), (512, 1, True, False),
 ])
 def test_eligibility(M, K, cx, ok):
     assert denoiser_cuda.fused_eligible(M, K, cx) is ok

@@ -11,10 +11,14 @@ route and through its two fused SRHT products, and is bit-equal on rows with
 entries in {-1, 0, 1}; K2 (the
 two-sided form, bf16 operands) is bit-exact on rows with entries in
 {-1, 0, 1} up to b = 256 and within chip_smoke.py's relative Frobenius
-bound of 1e-3 of its plain version on Gaussian rows; the
-denoiser tail uses tests/test_denoiser_pallas.py's tolerances (s to rtol
-1e-6, the softmax and energies to rtol 1e-5, since exp and the sums
-reassociate). The BP decode must give the plain decode's iteration counts
+bound of 1e-3 of its plain version on Gaussian rows; K2 with float32
+operands (three bf16 planes, float32 sums) is bit-equal to the exact
+transform on those rows at every width and within 2.5e-6 of the largest
+entry of its plain version (two float32 matmuls, TF32 off) on Gaussian
+rows, a limit between the kernel's readings (at most 1.73e-6, at 2^20) and
+those of a control without the lo plane (at least 3.25e-6); the denoiser tail uses tests/test_denoiser_pallas.py's tolerances (s
+to rtol 1e-6, the softmax and energies to rtol 1e-5, since exp and the
+sums reassociate), at every section length from 32 to 2^20. The BP decode must give the plain decode's iteration counts
 on every codeword, and its decisions and APP (rtol 1e-5, atol 1e-4, the
 bound tests/test_bp_pallas.py holds the TPU kernel to) on every codeword
 that stopped by parity.
@@ -211,6 +215,32 @@ def test_fused_denoise_update_matches_plain(M):
     torch.cuda.synchronize()
     for g, w, rtol in zip(got, want, (1e-6, 1e-5, 1e-5)):
         torch.testing.assert_close(g, w, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,L", [(1 << 13, 16), (1 << 14, 8), (1 << 15, 4),
+                                 (1 << 16, 4), (1 << 20, 2)])
+def test_fused_denoise_update_matches_plain_at_long_sections(M, L):
+    """From M = 8192 one block walks a section three times: in shared
+    memory up to 2^15, re-reading s above. The per-entry operations are the
+    register kernel's, so s is bit-equal and only the sums reassociate:
+    beta_new and the energies within rtol 1e-5, with an atol (1e-12) far
+    below a softmax entry of 2^20, so that every entry is held."""
+    dev = _card()
+    B = 2
+    gen = torch.Generator(device=dev).manual_seed(M)
+    beta = torch.softmax(3 * torch.randn(B, L, M, generator=gen, device=dev),
+                         -1).reshape(B, L * M)
+    azo = 4.0 * torch.randn(B, L * M, generator=gen, device=dev)
+    tau = 0.5 + torch.rand(B, L, generator=gen, device=dev)
+    before = denoiser_cuda.LAUNCHES
+    got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M)
+    assert denoiser_cuda.LAUNCHES == before + 1
+    want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12)
 
 
 CODES = {
@@ -476,11 +506,49 @@ def test_fwht_signed_2mm_matches_plain(log_w, pre):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("log_w", list(range(8, 21)))
+@pytest.mark.parametrize("mode", ["pre", "post", "none"])
+def test_fwht_signed_2mm_float32_operands_match_plain(log_w, mode):
+    """K2 with float32 operands: bit-equal to the exact transform on rows
+    with entries in {-1, 0, 1} (every sum is an integer below 2^24), and
+    within 2.5e-6 of the largest entry of its plain version, two float32
+    matmuls at full precision, on Gaussian rows."""
+    dev = _card()
+    torch.set_float32_matmul_precision("highest")
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(100 + log_w)
+    E = 2
+    signs = None if mode == "none" else (
+        torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
+    pre = mode == "pre"
+    xt = torch.randint(-1, 2, (2 * E, w), generator=gen, device=dev).float()
+    before = wht_cuda.LAUNCHES_2MM
+    got = wht_cuda.fwht_signed_2mm(xt, signs, pre, mm_dtype="float32")
+    assert wht_cuda.LAUNCHES_2MM == before + 1
+    want = wht_cuda.fwht_signed_ref(xt, signs, pre)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    xg = torch.randn(2 * E, w, generator=gen, device=dev)
+    got = wht_cuda.fwht_signed_2mm(xg, signs, pre, mm_dtype="float32")
+    want = wht_cuda.fwht_signed_2mm_ref(xg, signs, pre, "float32")
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2.5e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_fwht_signed_2mm_rejects_bad_arguments():
+    """float32 operands launch the mma.sync pass kernels (None or "mma") at
+    every width and refuse "wgmma"; bad widths and sign planes raise."""
     dev = _card()
     x = torch.zeros(2, 1 << 10, device=dev)
-    with pytest.raises(NotImplementedError):
-        wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32")
+    before = wht_cuda.LAUNCHES_2MM
+    for kernel in (None, "mma"):
+        y = wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32", kernel=kernel)
+        assert torch.equal(y, x)
+    assert wht_cuda.LAUNCHES_2MM == before + 2
+    with pytest.raises(ValueError, match="mma"):
+        wht_cuda.fwht_signed_2mm(torch.zeros(2, 1 << 16, device=dev), None, True,
+                                 mm_dtype="float32", kernel="wgmma")
     with pytest.raises(ValueError):
         wht_cuda.fwht_signed_2mm(torch.zeros(2, 128, device=dev), None, True)
     with pytest.raises(ValueError):
