@@ -56,8 +56,10 @@ products), and drives and times the paths `bench.py` times:
     against `decode_batch`, and the step at (1,2) on two ranks on this
     one card through gloo, whose counters must equal (1,1)'s (phase 19).
   * slice G, the rest of the TPU kernels' range: K2 with float32 operands
+    (the wgmma kernels of its table and the mma.sync pass kernels by name)
     bit-exact on ternary rows and within 2.5e-6 of its plain version at the
-    SC and headline shapes, timed beside the cuBLAS float32 pair; the SC
+    SC and headline shapes, the two kernels and the cuBLAS float32 pair
+    timed in turns, the wide layout's two launches singly; the SC
     decode through it (path A, 64 codewords) against the plain path and
     timed beside K1 and bf16 K2; the headline decode through it (path B);
     `sparc-sweep --fwht-mode 2mm_f32` on the SC code and at two rows of
@@ -206,12 +208,14 @@ CAMPAIGN_CUT = 2           # the points the cut store keeps
 MESH_TRIALS = 16           # sparc_mc_counts at the headline shape on the mesh
 
 # slice G: K2 with float32 operands (path A: the SC code above; path B: the
-# headline) and K3 at M >= 8192 (path C). K2 with float32 operands against
-# its plain version, two float32 matmuls with TF32 off: every partial
-# product is exact (three bf16 planes against +-1) and only the float32
-# sums run in another order. max|d| <= 2.5e-6 max|ref|: the kernel reads
-# 2.1e-7 to 1.73e-6 from 2^8 to 2^20, a control without the lo plane 3.25e-6
-# to 4.11e-6 (time_k2.py --mm-dtype float32, 256 rows, PERF.md section 6)
+# headline) and K3 at M >= 8192 (path C). K2 with float32 operands (the
+# wgmma kernels and the mma.sync pass kernels) against its plain
+# version, two float32 matmuls with TF32 off: every partial product is
+# exact (three bf16 planes against +-1) and only the float32 sums run in
+# another order. max|d| <= 2.5e-6 max|ref|: the wgmma kernels read 3.2e-7
+# to 1.81e-6 from 2^12 to 2^20, the pass kernels 2.1e-7 to 1.73e-6 from
+# 2^8, a control without the lo plane 3.25e-6 to 4.11e-6 (time_k2.py
+# --mm-dtype float32, 256 rows, PERF.md section 6)
 K2F32_ABS_BOUND = 2.5e-6
 K2F32_TERNARY_LOG_W = (8, 12, 15, 16, 19, 20)
 PATH_C = dict(P=15.0, R=1.0, L=64, M=8192)     # LM = 2^19, n = 832
@@ -1690,19 +1694,23 @@ def slice_g(dev, card):
         return errs
 
     # -- 20: K2 with float32 operands ---------------------------------------------
+    # the table's kernel (wgmma from 2^12, the mma.sync pass kernels below)
+    # and the pass kernels by name: each bit-exact on ternary rows
     exact = []
     for log_w in K2F32_TERNARY_LOG_W:
         w = 1 << log_w
         x = torch.randint(-1, 2, (4, w), generator=gen, device=dev).float()
         signs = (torch.randint(0, 2, (2, w), generator=gen, device=dev) * 2 - 1).float()
+        kernels = (("wgmma",) if log_w >= wht_cuda.WGMMA_MIN_LOG_W else ()) + ("mma",)
         for sg, pre in ((signs, True), (signs, False), (None, True)):
-            got = wht_cuda.fwht_signed_2mm(x, sg, pre, "float32")
             want = wht_cuda.fwht_signed_ref(x, sg, pre)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"K2 float32 on ternary rows at 2^{log_w} pre={pre} "
-                                     f"signs={sg is not None} is not exact")
-        exact.append(f"2^{log_w}")
+            for kernel in kernels:
+                got = wht_cuda.fwht_signed_2mm(x, sg, pre, "float32", kernel=kernel)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K2 float32 ({kernel}) on ternary rows at 2^{log_w} "
+                                         f"pre={pre} signs={sg is not None} is not exact")
+        exact.append(f"2^{log_w} ({', '.join(kernels)})")
     sc_params = SparcParams(**SC)
     sc_design = SparcDesign.for_params(sc_params, SC_AWGN, seed=SEED, device=dev)
     head_signs = (torch.randint(0, 2, (1, 1 << 19), generator=gen, device=dev) * 2
@@ -1711,41 +1719,67 @@ def slice_g(dev, card):
     for name, rows, signs in (("SC", SC_BATCH * sc_design.E, sc_design.signs),
                               ("headline", BATCH, head_signs)):
         w = signs.shape[1]
+        log_w = w.bit_length() - 1
         a, b = wht_cuda.split_ab(w)
         x = torch.randn(rows, w, generator=gen, device=dev)
-        err, ms, plain = 0.0, [], []
+        err = {"wgmma": 0.0, "mma": 0.0}
         for pre in (True, False):
-            got = wht_cuda.fwht_signed_2mm(x, signs, pre, "float32")
             want = wht_cuda.fwht_signed_2mm_ref(x, signs, pre, "float32")
-            torch.cuda.synchronize()
-            e, lim = float((got - want).abs().max()), K2F32_ABS_BOUND * float(want.abs().max())
-            del got, want
-            if not e <= lim:
-                raise AssertionError(f"K2 float32 vs plain at {name} pre={pre}: {e} > {lim}")
-            err = max(err, e)
-            ms.append(cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, signs, pre, "float32"),
-                              reps=10))
-            plain.append(cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, signs, pre,
-                                                                       "float32"),
-                                 reps=2, warmup=1))
-        passes = [cuda_ms(lambda: wht_cuda.fwht_signed_2mm(x, signs, True, "float32",
-                                                           passes=p), reps=10)
-                  for p in (1, 2)]
+            lim = K2F32_ABS_BOUND * float(want.abs().max())
+            for kernel in err:
+                got = wht_cuda.fwht_signed_2mm(x, signs, pre, "float32", kernel=kernel)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                del got
+                if not e <= lim:
+                    raise AssertionError(f"K2 float32 ({kernel}) vs plain at {name} "
+                                         f"pre={pre}: {e} > {lim}")
+                err[kernel] = max(err[kernel], e)
+            del want
+        # the wgmma kernel, the mma.sync pass kernels and the cuBLAS float32
+        # pair in turns, then in the reverse order; the two launches of each
+        # kernel that makes two, singly
         ha = wht_cuda.hadamard_factor(a, torch.float32, dev)
         hb = wht_cuda.hadamard_factor(b, torch.float32, dev)
         xv = x.reshape(rows, a, b)
-        lib = cuda_ms(lambda: ha @ (xv @ hb), reps=5)
+        ms = {(k, pre): [] for k in err for pre in (True, False)}
+        lib = []
+        for turn in (("wgmma", "mma", "cublas"), ("cublas", "mma", "wgmma")):
+            for kernel in turn:
+                if kernel == "cublas":
+                    lib.append(cuda_ms(lambda: ha @ (xv @ hb), reps=5))
+                    continue
+                for pre in (True, False):
+                    ms[kernel, pre].append(cuda_ms(
+                        lambda: wht_cuda.fwht_signed_2mm(x, signs, pre, "float32",
+                                                         kernel=kernel), reps=10))
+        ms = {k: sum(v) / len(v) for k, v in ms.items()}
+        launches_ms = {k: [cuda_ms(lambda: wht_cuda.fwht_signed_2mm(
+            x, signs, True, "float32", kernel=k, passes=p), reps=10) for p in (1, 2)]
+            for k in err if k == "mma" or log_w > wht_cuda.TILE_MAX_LOG_W_2MM}
+        plain = [cuda_ms(lambda: wht_cuda.fwht_signed_2mm_ref(x, signs, pre, "float32"),
+                         reps=2, warmup=1) for pre in (True, False)]
         del x, xv
-        # x and y once, the signs once; three bf16 products a float32 one
-        bound = least_ms(4 * (2 * rows * w + signs.shape[0] * w),
-                         3 * 2 * rows * (a * b * b + a * a * b), BF16_FLOPS)
-        f32[name] = dict(err=err, ms=sum(ms) / 2, plain_ms=sum(plain) / 2, lib=lib,
-                         bound=bound)
+        # the transform's own work: x and y once, the signs once; w log2 w
+        # float32 adds a row. Beside it, the earlier reckoning: three full bf16
+        # products (one a plane) at the tensor cores' rate
+        n_bytes = 4 * (2 * rows * w + signs.shape[0] * w)
+        bound = least_ms(n_bytes, rows * w * log_w)
+        bound3 = least_ms(n_bytes, 3 * 2 * rows * (a * b * b + a * a * b), BF16_FLOPS)
+        lib_ms = sum(lib) / len(lib)
+        f32[name] = dict(err=err["wgmma"], ms=(ms["wgmma", True] + ms["wgmma", False]) / 2,
+                         plain_ms=sum(plain) / 2, lib=lib_ms, bound=bound)
         f32_text.append(
-            f"{name} ({rows}, 2^{w.bit_length() - 1}): max|d| {err:.2e}, pre / post "
-            f"{ms[0]:.4f} / {ms[1]:.4f} ms (pass 1 {passes[0]:.4f}, pass 2 "
-            f"{passes[1]:.4f}), plain {plain[0]:.4f} / {plain[1]:.4f} ms, cuBLAS float32 "
-            f"pair {lib:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+            f"{name} ({rows}, 2^{log_w}): max|d| wgmma {err['wgmma']:.2e}, mma "
+            f"{err['mma']:.2e}; pre / post wgmma {ms['wgmma', True]:.4f} / "
+            f"{ms['wgmma', False]:.4f} ms, mma.sync passes {ms['mma', True]:.4f} / "
+            f"{ms['mma', False]:.4f} ms ("
+            + ", ".join(f"{k} launch 1 {v[0]:.4f}, launch 2 {v[1]:.4f}"
+                        for k, v in launches_ms.items())
+            + f"), plain {plain[0]:.4f} / {plain[1]:.4f} ms, cuBLAS float32 pair "
+            f"{lib_ms:.4f} ms ({' / '.join(f'{v:.4f}' for v in lib)}), bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (three bf16 products: "
+            f"{bound3['bound_ms']:.4f} ms by {bound3['bound_by']})")
 
     # path A: the SC decode through K2 with float32 operands
     decode = DecodeParams(t_max=SC_T_MAX)

@@ -113,8 +113,8 @@ def load() -> ctypes.CDLL:
             lib.ldpc_fwht_2mm.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
                                           i32, i32, i32, ptr]
             lib.ldpc_fwht_2mm.restype = i32
-            lib.ldpc_fwht_2mm_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
-                                              i32, ptr]
+            lib.ldpc_fwht_2mm_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32,
+                                              i32, i32, i32, i32, ptr]
             lib.ldpc_fwht_2mm_f32.restype = i32
             lib.ldpc_denoise_update.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                                 i64, i32, ptr]

@@ -49,26 +49,9 @@
 //   T in shared memory (a x (b + 8)), Y strip by strip, signs read as a
 //   float plane.
 //
-// Float32 operands (mm_dtype "float32", the TPU kernel's float32 operand
-// type; ldpc_fwht_2mm_f32): Y = H_a . (X . H_b) with T = X . H_b kept in
-// float32. Each float32 operand v is split into three bf16 planes, hi =
-// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), rounded to nearest
-// with no contraction: each residual has at most 15, then 7 significant
-// bits, so v = hi + mid + lo exactly for |v| above about 2^-100. H holds only
-// +-1, so every partial product is exact; a product is three bf16 mma.sync
-// passes into one float32 accumulator, lo first, then mid, then hi (the
-// small terms summed before the large), and differs from a float32 matmul
-// only in the order of its float32 sums. Two launches of one pass kernel at
-// every width (2^8 to 2^20): pass 1 applies H_b along the rows of the
-// (R a, b) view (pre-signs as X is read) and writes T into y; pass 2 applies
-// H_a along the columns of each row's (a, b) view in place (post-signs as Y
-// is written): a block reads its whole tile into shared memory before it
-// writes the same entries back. T crosses device memory in float32: 16w
-// bytes a row.
-//
-// What bounds it: at w = 2^15 the two products are 2(a b^2 + a^2 b) =
-// 25.2 MFLOP per row against 8w = 256 KB of traffic, 96 FLOP per byte,
-// under the card's ~295 for bf16: memory-bound. At 2^19 (a = 512,
+// What bounds the bf16 kernels: at w = 2^15 the two products are
+// 2(a b^2 + a^2 b) = 25.2 MFLOP per row against 8w = 256 KB of traffic, 96
+// FLOP per byte, under the card's ~295 for bf16: memory-bound. At 2^19 (a = 512,
 // b = 1024) it is 1.61 GFLOP per row against 12w = 6 MB, 256 FLOP per byte:
 // the tensor cores bound the full products (0.417 ms at (256, 2^19)); with
 // the radix split the wide layout is memory-bound too (0.48 ms for its
@@ -78,6 +61,44 @@
 // bound 0.97 ms, the cuBLAS bf16 pair 1.13 ms; (256, 2^19): wgmma 0.73 /
 // 0.68 / 0.68 ms, the pair 0.57 ms (two mma.sync launches with 16-row and
 // 16-column tiles, since removed, took 1.82 / 1.39 / 1.44 ms).
+//
+// Float32 operands (mm_dtype "float32"; replaces the same Pallas kernel,
+// wht_pallas.py:103 `_kernel`, with dtype float32; ldpc_fwht_2mm_f32): Y =
+// H_a . (X . H_b) with T = X . H_b kept in float32. Each float32 operand v
+// is split into three bf16 planes, hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid), rounded to nearest with no contraction: each residual
+// has at most 15, then 7 significant bits, so v = hi + mid + lo exactly for
+// |v| above about 2^-100. H holds only +-1, so every partial product is
+// exact; a product runs the three planes into one float32 accumulator, lo
+// first, then mid, then hi (the small terms summed before the large), and
+// differs from a float32 matmul only in the order of its float32 sums (the
+// radix butterfly of the wide layout, after the three-plane H_256
+// products, is such a reordering too). Three planes triple the tensor work
+// and the shared memory of the bf16 kernels; what bounds a row is its bytes
+// (8w at 2^15: 0.97 ms at (12288, 2^15), against 0.94 ms of three-plane
+// tensor work) and, where T cannot stay on chip, T's float32 crossing (16w
+// bytes a row: 0.64 ms at (256, 2^19), against 0.42 ms of tensor work with
+// the radix split). So:
+//   wgmma tile, 2^12 to 2^15: one launch, one block a row, X's three planes
+//     in shared memory (192 KB at 2^15, one block an SM; 2^12 to 2^14 fit
+//     two), T^T chunk by chunk in the warpgroups' float32 accumulators,
+//     then its three planes over X's: T never leaves the SM, 8w bytes a row.
+//     A block loads, multiplies and stores in turn; blocks on other SMs
+//     overlap its bytes.
+//   wgmma wide, 2^16 to 2^20: the bf16 wide layout's two persistent
+//     launches on tiles of half its size (2^14 floats: 64 KB staged by
+//     cp.async beside 96 KB of planes; N = 16 at 2^19 and 2^20), T in
+//     float32 in the layout (r, b, a) between them.
+//   Both read the signs as bits, packed once a call.
+//   mma.sync passes (every width; the table's below 2^12, and the
+//     yardstick the wgmma kernels are timed against): pass 1 applies H_b
+//     along the rows of the (R a, b) view (pre-signs as X is read) and
+//     writes T into y; pass 2 applies H_a along the columns of each row's
+//     (a, b) view in place (post-signs as Y is written), reading its tile
+//     whole before it writes it back; signs as a float plane, T through
+//     device memory (16w bytes a row). Measured (NVIDIA H100 80GB HBM3,
+//     700 W, time_k2.py): 3.91 / 4.01 ms pre / post at (12288, 2^15), 2.85
+//     / 2.98 ms at (256, 2^19).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -330,6 +351,22 @@ __device__ __forceinline__ void group_sync(int wg) {   // the 128 threads of a w
 }
 
 template <int SA>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, %14, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(SA));
+}
+
+template <int SA>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d) {
   asm volatile(
@@ -465,20 +502,33 @@ __device__ __forceinline__ void wgmma_done(float (&acc)[R][NACC]) {
 }
 
 // Starts acc (64 x N, float32) = H[64 MC .. 64 MC + 63][0 .. 16 KSTEPS) . B
-// for the warpgroup, k-steps KT to KSTEPS - 1; B is a K-major tile (LBO
-// kLbo) whose descriptor for step KT is desc: a k-step is two core matrices
-// further along K. Between wgmma_fence() and wgmma_done().
-template <int MC, int N, int KT, int KSTEPS>
+// for the warpgroup, k-steps KT to KSTEPS - 1 (ACC: acc += ...); B is a
+// K-major tile (LBO kLbo) whose descriptor for step KT is desc: a k-step is
+// two core matrices further along K. Between wgmma_fence() and wgmma_done().
+template <int MC, int N, int KT, int KSTEPS, bool ACC = false>
 struct Hgemm {
   static __device__ __forceinline__ void run(float (&acc)[N / 2],
                                              const uint32_t (&hq)[4][4], uint64_t desc) {
     constexpr int SA = parity_c(MC & (KT >> 2)) ? -1 : 1;
-    wgmma_rs<SA>(acc, hq[KT & 3], desc, KT != 0);
+    wgmma_rs<SA>(acc, hq[KT & 3], desc, ACC || KT != 0);
     if constexpr (KT + 1 < KSTEPS) {
-      Hgemm<MC, N, KT + 1, KSTEPS>::run(acc, hq, desc + 2 * kLbo / 16);
+      Hgemm<MC, N, KT + 1, KSTEPS, ACC>::run(acc, hq, desc + 2 * kLbo / 16);
     }
   }
 };
+
+// acc = H[64 MC ..][0 .. 16 KSTEPS) . (hi + mid + lo) for the three bf16
+// planes of a K-major tile (SBO sbo), hi at tile, mid and lo one and two
+// planes further: the lo plane first, then mid, then hi, into one float32
+// accumulator, so that the small terms are summed before the large. Between
+// wgmma_fence() and wgmma_done().
+template <int MC, int N, int KSTEPS>
+__device__ __forceinline__ void hgemm3(float (&acc)[N / 2], const uint32_t (&hq)[4][4],
+                                       const unsigned char* tile, int plane, uint32_t sbo) {
+  Hgemm<MC, N, 0, KSTEPS>::run(acc, hq, bdesc(tile + 2 * plane, kLbo, sbo));
+  Hgemm<MC, N, 0, KSTEPS, true>::run(acc, hq, bdesc(tile + plane, kLbo, sbo));
+  Hgemm<MC, N, 0, KSTEPS, true>::run(acc, hq, bdesc(tile, kLbo, sbo));
+}
 
 // (E, w) float signs -> one bit each (set where the sign is negative), 32 a
 // word in the order of the row.
@@ -493,19 +543,31 @@ __device__ __forceinline__ float flipf(float v, uint32_t bit) {
   return __uint_as_float(__float_as_uint(v) ^ (bit << 31));
 }
 
+// The three planes of the pair (a, b), each a bf16x2 with a in the low half:
+// q[0] = hi, q[1] = mid, q[2] = lo, a = hi + mid + lo exactly.
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&q)[3]) {
+  q[0] = bf16x2(a, b);
+  const float ra = __fsub_rn(a, __uint_as_float(q[0] << 16));
+  const float rb = __fsub_rn(b, __uint_as_float(q[0] & 0xFFFF0000u));
+  q[1] = bf16x2(ra, rb);
+  q[2] = bf16x2(__fsub_rn(ra, __uint_as_float(q[1] << 16)),
+                __fsub_rn(rb, __uint_as_float(q[1] & 0xFFFF0000u)));
+}
+
 // NROWS rows of KW floats from x on (PITCH floats from one row to the next;
 // device or shared memory), their signs applied (sb: the bit plane at the
-// first row's first entry, or null), to bf16 in a K-major tile at xs. All
-// THREADS threads of the block. A warp's load takes 8 rows x 16 columns;
-// successive loads walk along the rows.
-template <int NROWS, int KW, int THREADS, int PITCH = KW>
+// first row's first entry, or null), to bf16 in a K-major tile at xs; with
+// PLANES 3, split into hi, mid and lo (split3), three such tiles `plane`
+// bytes apart. All THREADS threads of the block. A warp's load takes 8 rows
+// x 16 columns; successive loads walk along the rows.
+template <int NROWS, int KW, int THREADS, int PITCH = KW, int PLANES = 1, int UNMAX = 8>
 __device__ __forceinline__ void load_tile(const float* __restrict__ x,
                                           const uint32_t* __restrict__ sb,
-                                          unsigned char* xs) {
+                                          unsigned char* xs, int plane = 0) {
   constexpr int SBO = KW / 8 * kLbo;
   constexpr int WARPS = THREADS / 32;
   constexpr int PER = NROWS / 8 * (KW / 16) / WARPS;   // loads a thread
-  constexpr int UN = PER < 8 ? PER : 8;
+  constexpr int UN = PER < UNMAX ? PER : UNMAX;        // of them in flight
   static_assert(NROWS / 8 * (KW / 16) % WARPS == 0 && PER % UN == 0, "tile / warps");
   const int warp = threadIdx.x >> 5;
   const int row8 = threadIdx.x & 7;
@@ -524,12 +586,25 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ x,
 #pragma unroll
     for (int u = 0; u < UN; ++u) {
       const int unit = (i0 + u) * WARPS + warp;
-      const uint2 o = make_uint2(
-          bf16x2(flipf(v[u].x, s[u] & 1u), flipf(v[u].y, (s[u] >> 1) & 1u)),
-          bf16x2(flipf(v[u].z, (s[u] >> 2) & 1u), flipf(v[u].w, (s[u] >> 3) & 1u)));
-      *reinterpret_cast<uint2*>(xs + (unit / (KW / 16)) * SBO +
-                                (2 * (unit % (KW / 16)) + (piece >> 1)) * kLbo +
-                                row8 * 16 + (piece & 1) * 8) = o;
+      unsigned char* at = xs + (unit / (KW / 16)) * SBO +
+                          (2 * (unit % (KW / 16)) + (piece >> 1)) * kLbo + row8 * 16 +
+                          (piece & 1) * 8;
+      const float a0 = flipf(v[u].x, s[u] & 1u);
+      const float a1 = flipf(v[u].y, (s[u] >> 1) & 1u);
+      const float a2 = flipf(v[u].z, (s[u] >> 2) & 1u);
+      const float a3 = flipf(v[u].w, (s[u] >> 3) & 1u);
+      if constexpr (PLANES == 1) {
+        *reinterpret_cast<uint2*>(at) = make_uint2(bf16x2(a0, a1), bf16x2(a2, a3));
+      } else {
+        static_assert(PLANES == 3, "one plane, or hi, mid and lo");
+        uint32_t p0[3], p1[3];
+        split3(a0, a1, p0);
+        split3(a2, a3, p1);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          *reinterpret_cast<uint2*>(at + q * plane) = make_uint2(p0[q], p1[q]);
+        }
+      }
     }
   }
 }
@@ -548,13 +623,15 @@ __device__ __forceinline__ void store_y(const float (&acc)[N / 2], int row0, flo
   const int t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    // ldy and col0 are multiples of 32: a sign word serves four steps of j
+    // ldy is a multiple of 32, and so is col0 for N >= 32: a sign word
+    // serves four steps of j; N = 16 takes half a word, from bit 0 or 16
     const long long at0 = static_cast<long long>(row0 + 16 * wi + g + 8 * h) * ldy + col0;
+    const int bit0 = N < 32 ? static_cast<int>(at0 & 31) : 0;
     uint32_t word = 0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       if ((j & 3) == 0 && sb != nullptr) word = __ldg(sb + ((at0 + 8 * j) >> 5));
-      const uint32_t sg = word >> (8 * (j & 3) + 2 * t);
+      const uint32_t sg = word >> (bit0 + 8 * (j & 3) + 2 * t);
       *reinterpret_cast<float2*>(y + at0 + 8 * j + 2 * t) =
           make_float2(flipf(acc[4 * j + 2 * h], sg & 1u),
                       flipf(acc[4 * j + 2 * h + 1], (sg >> 1) & 1u));
@@ -670,19 +747,21 @@ fwht2mm_wg_tile_kernel(const float* __restrict__ x, const uint32_t* __restrict__
   }
 }
 
-// The wide layout's product, for both launches: out (D x N) = H_D . tile,
-// D = 256 RAD, tile a K-major D x N bf16 tile. H_D = H_RAD (x) H_256: each
-// of the four warpgroups takes the 64-row chunk WG of H_256 and runs it over
-// each of the RAD blocks of 256 along K (RAD runs of 16 wgmma, RAD
-// accumulators of 64 x N); the RAD-point butterfly across the blocks is
-// float32 adds in registers, a quarter of the tensor work at D = 1024 and
-// the same sums in another order. emit(jb, acc) receives the rows
-// 256 jb + 64 WG .. + 63 of the result.
-template <int RAD, int N, int WG, class Emit>
-__device__ __forceinline__ void wide_product(const uint32_t (&hq)[4][4],
-                                             const unsigned char* tile, Emit emit) {
-  constexpr int SBO = 256 * RAD / 8 * kLbo;
-  float acc[RAD][N / 2];
+// out (D x N) = H_D . tile, D = BASE RAD, tile a K-major D x N bf16 tile.
+// H_D = H_RAD (x) H_BASE: the warpgroup takes the 64-row chunk MC of
+// H_BASE and runs it over each of the RAD blocks of BASE along K (RAD runs
+// of wgmma, RAD accumulators of 64 x N); the RAD-point butterfly across the
+// blocks is float32 adds in registers, a half or a quarter of the tensor
+// work at RAD = 2 or 4 and the same sums in another order. acc[jb] ends as
+// the rows BASE jb + 64 MC .. + 63 of the result. With PLANES 3 the tile is
+// three planes (hi, mid, lo; `plane` bytes apart) and each block runs them
+// lo first into one accumulator (hgemm3); the butterfly follows the
+// three-plane products.
+template <int RAD, int N, int MC, int PLANES, int BASE = 256>
+__device__ __forceinline__ void radix_product(float (&acc)[RAD][N / 2],
+                                              const uint32_t (&hq)[4][4],
+                                              const unsigned char* tile, int plane = 0) {
+  constexpr int SBO = BASE * RAD / 8 * kLbo;
 #pragma unroll
   for (int kb = 0; kb < RAD; ++kb) {
 #pragma unroll
@@ -691,7 +770,12 @@ __device__ __forceinline__ void wide_product(const uint32_t (&hq)[4][4],
   wgmma_fence();
 #pragma unroll
   for (int kb = 0; kb < RAD; ++kb) {
-    Hgemm<WG, N, 0, 16>::run(acc[kb], hq, bdesc(tile + kb * 32 * kLbo, kLbo, SBO));
+    const unsigned char* block = tile + kb * (BASE / 8) * kLbo;
+    if constexpr (PLANES == 1) {
+      Hgemm<MC, N, 0, BASE / 16>::run(acc[kb], hq, bdesc(block, kLbo, SBO));
+    } else {
+      hgemm3<MC, N, BASE / 16>(acc[kb], hq, block, plane, SBO);
+    }
   }
   wgmma_done(acc);
 #pragma unroll
@@ -709,6 +793,17 @@ __device__ __forceinline__ void wide_product(const uint32_t (&hq)[4][4],
       acc[3][i] = p1 - p3;
     }
   }
+}
+
+// The wide layout's product, for both launches: radix_product over H_256,
+// the warpgroup's chunk WG of its rows; emit(jb, acc) receives the rows
+// 256 jb + 64 WG .. + 63 of the result.
+template <int RAD, int N, int WG, int PLANES, class Emit>
+__device__ __forceinline__ void wide_product(const uint32_t (&hq)[4][4],
+                                             const unsigned char* tile, Emit emit,
+                                             int plane = 0) {
+  float acc[RAD][N / 2];
+  radix_product<RAD, N, WG, PLANES>(acc, hq, tile, plane);
 #pragma unroll
   for (int jb = 0; jb < RAD; ++jb) emit(jb, acc[jb]);
 }
@@ -764,7 +859,7 @@ fwht2mm_wg_rows_kernel(const float* __restrict__ x, const uint32_t* __restrict__
     uint16_t* tr = tout + r * w + i0;
     auto body = [&](auto wg_c) {
       constexpr int WG = decltype(wg_c)::value;
-      wide_product<B / 256, NV, WG>(hq, xs, [&](int jb, const float(&acc)[NV / 2]) {
+      wide_product<B / 256, NV, WG, 1>(hq, xs, [&](int jb, const float(&acc)[NV / 2]) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const long long j = 256 * jb + 64 * WG + 16 * wi + g + 8 * h;
@@ -838,7 +933,7 @@ fwht2mm_wg_cols_kernel(const uint16_t* __restrict__ tin, const uint32_t* __restr
     const uint32_t* sb = post ? sbits + (r % E) * (w / 32) : nullptr;
     auto body = [&](auto wg_c) {
       constexpr int WG = decltype(wg_c)::value;
-      wide_product<A / 256, NB, WG>(
+      wide_product<A / 256, NB, WG, 1>(
           hq, smem_wg + buf * 65536, [&](int jb, const float(&acc)[NB / 2]) {
             store_y<NB>(acc, 256 * jb + 64 * WG, y + r * w, sb, 1 << log_b, col0);
           });
@@ -946,18 +1041,7 @@ cudaError_t run_wg_cols(int log_a, long long rows, const uint16_t* t,
   }
 }
 
-// ---- float32 operands: three bf16 planes -------------------------------------
-
-// The three planes of the pair (a, b), each a bf16x2 with a in the low half:
-// q[0] = hi, q[1] = mid, q[2] = lo, a = hi + mid + lo exactly.
-__device__ __forceinline__ void split3(float a, float b, uint32_t (&q)[3]) {
-  q[0] = bf16x2(a, b);
-  const float ra = __fsub_rn(a, __uint_as_float(q[0] << 16));
-  const float rb = __fsub_rn(b, __uint_as_float(q[0] & 0xFFFF0000u));
-  q[1] = bf16x2(ra, rb);
-  q[2] = bf16x2(__fsub_rn(ra, __uint_as_float(q[1] << 16)),
-                __fsub_rn(rb, __uint_as_float(q[1] & 0xFFFF0000u)));
-}
+// ---- float32 operands: the mma.sync pass kernels ------------------------------
 
 constexpr int kF32Threads = 256;
 
@@ -1192,18 +1276,232 @@ cudaError_t run_f32_pass2(int log_w, long long rows, const float* signs, float* 
   }
 }
 
+// ---- float32 operands on wgmma ------------------------------------------------
+//
+// The same products as the bf16 wgmma kernels, each operand as its three
+// bf16 planes (split3) and each product run lo, mid, hi into one float32
+// accumulator (hgemm3). T = X . H_b is never rounded: it goes from the
+// accumulators of product 1 into three planes again, or to device memory
+// as float32.
+
+// Widths 2^12 to 2^15, one launch, one block a row of B / 64 warpgroups.
+// X's three planes (6w bytes: 192 KB at 2^15) fill the block's shared
+// memory (one block an SM at 2^15, two from 2^12 to 2^14), so a block
+// loads, multiplies and stores in turn; blocks on other SMs overlap its
+// bytes. Both products take a factor of 128 or 256 as H_2 or H_4 (x) H_64
+// (radix_product, BASE 64): a half or a quarter of the tensor work, the
+// butterfly in float32. Product 1: warpgroup g takes X's rows N1 g .. N1 g
+// + N1 - 1 (N1 = A / (B / 64)) and holds T^T (B x N1) for them in float32
+// accumulators (64 a thread at 2^15); once every warpgroup has read X,
+// T^T's three planes go over X's, as B / 64 K-major chunks of 64 x A.
+// Product 2: warpgroup g runs Y[:, chunk g] = H_A . T[:, chunk g], and Y
+// goes out from the accumulators. x in and y out, 8w bytes a row.
+template <int LOG_A, int LOG_B>
+__global__ void __launch_bounds__(2 << LOG_B, (LOG_B > 7 ? 1 : 2))
+fwht2mm_f32_tile_kernel(const float* __restrict__ x, const uint32_t* __restrict__ sbits,
+                        float* __restrict__ y, int E, int pre, int post) {
+  constexpr int A = 1 << LOG_A;
+  constexpr int B = 1 << LOG_B;
+  constexpr int N1 = A / (B / 64);       // X's rows a warpgroup takes in product 1
+  constexpr int XS = A * B * 2;          // one plane of X, bytes
+  constexpr int XS_SBO = B / 8 * kLbo;
+  constexpr int TS = A * 128;            // one plane of a chunk of T^T (64 x A)
+  constexpr int TS_SBO = A / 8 * kLbo;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const long long w = static_cast<long long>(A) * B;
+  const long long r = blockIdx.x;
+  const uint32_t* sb = sbits != nullptr ? sbits + (r % E) * (w / 32) : nullptr;
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int wi = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  uint32_t hq[4][4];
+  hfrags(hq);
+  load_tile<A, B, 2 * B, B, 3>(x + r * w, pre ? sb : nullptr, smem_wg, XS);
+  fence_async_smem();
+  __syncthreads();
+  float t[B / 64][N1 / 2];
+  radix_product<B / 64, N1, 0, 3, 64>(t, hq, smem_wg + wg * (N1 / 8) * XS_SBO, XS);
+  __syncthreads();   // every warpgroup has read X: T's planes go over it
+#pragma unroll
+  for (int jb = 0; jb < B / 64; ++jb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < N1 / 8; ++j) {
+        uint32_t q[3];
+        split3(t[jb][4 * j + 2 * h], t[jb][4 * j + 2 * h + 1], q);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          *reinterpret_cast<uint32_t*>(smem_wg + (3 * jb + p) * TS + (2 * wi + h) * TS_SBO +
+                                       (wg * (N1 / 8) + j) * kLbo + g * 16 + 4 * tq) = q[p];
+        }
+      }
+    }
+  }
+  fence_async_smem();
+  __syncthreads();   // T's planes are whole
+  float acc[A / 64][32];
+  radix_product<A / 64, 64, 0, 3, 64>(acc, hq, smem_wg + wg * 3 * TS, TS);
+#pragma unroll
+  for (int jb = 0; jb < A / 64; ++jb) {
+    store_y<64>(acc[jb], 64 * jb, y + r * w, post ? sb : nullptr, B, 64 * wg);
+  }
+}
+
+// Widths 2^16 to 2^20, launch L (1 or 2) of two, persistent, one block of
+// four warpgroups an SM. A tile is 2^14 contiguous float32 read as N =
+// 2^14 / K vectors of K = 2^LOG_K, out = H_K . vectors, H_K = H_RAD (x)
+// H_256 (wide_product, three planes): cp.async stages the next tile's
+// float32 (64 KB) while this tile's three planes (96 KB) are multiplied.
+//   L = 1: the vectors are rows of the (R A, B) view (K = B, log_o =
+//     log A), pre-signs applied as they are split; T^T goes out in float32
+//     in the layout (r, B, A), so that a strip of T is contiguous.
+//   L = 2: a tile is row r's strip of N columns of T (K = A, log_o =
+//     log B); Y[:, strip] goes out from the accumulators, post-signs
+//     applied.
+// T crosses device memory in float32, 16w bytes a row in all.
+template <int LOG_K, int L>
+__global__ void __launch_bounds__(512, 1)
+fwht2mm_f32_wide_kernel(const float* __restrict__ in, const uint32_t* __restrict__ sbits,
+                        float* __restrict__ out, long long tiles, int log_o, int E,
+                        int sign) {
+  constexpr int K = 1 << LOG_K;
+  constexpr int N = 16384 / K;
+  constexpr int PITCH = K + 4;   // floats a staged row: its 16-byte loads hit distinct banks
+  constexpr int PLANE = N * K * 2;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const float* stage = reinterpret_cast<const float*>(smem_wg + 3 * PLANE);
+  const uint32_t stage_at =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_wg + 3 * PLANE));
+  const long long w = static_cast<long long>(K) << log_o;
+  auto fetch = [&](long long tile) {
+    const float* src = in + tile * 16384;
+#pragma unroll 8
+    for (int i = threadIdx.x; i < 16384 / 4; i += 512) {
+      cp_async16(stage_at + (i / (K / 4)) * (PITCH * 4) + (i % (K / 4)) * 16, src + 4 * i);
+    }
+  };
+  uint32_t hq[4][4];
+  hfrags(hq);
+  const int lane = threadIdx.x & 31;
+  const int wi = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  long long tile = blockIdx.x;
+  if (tile < tiles) fetch(tile);
+  for (; tile < tiles; tile += gridDim.x) {
+    long long r;
+    int off;   // L = 1: the tile's first row of the (A, B) view; 2: its first column
+    if constexpr (L == 1) {
+      const long long row0 = tile * N;
+      r = row0 >> log_o;
+      off = static_cast<int>(row0 - (r << log_o));
+    } else {
+      const long long strips = (1LL << log_o) / N;
+      r = tile / strips;
+      off = static_cast<int>(tile % strips) * N;
+    }
+    const uint32_t* sb = sign ? sbits + (r % E) * (w / 32) : nullptr;
+    cp_async_wait_all();
+    __syncthreads();   // the tile is staged; the last tile's products have read the planes
+    load_tile<N, K, 512, PITCH, 3, 4>(   // 4 loads in flight: 8 spill at K = 1024
+        stage, L == 1 && sign ? sb + static_cast<long long>(off) * (K / 32) : nullptr,
+        smem_wg, PLANE);
+    fence_async_smem();
+    __syncthreads();   // the planes are whole; the staging area is free
+    if (tile + gridDim.x < tiles) fetch(tile + gridDim.x);
+    auto body = [&](auto wg_c) {
+      constexpr int WG = decltype(wg_c)::value;
+      wide_product<K / 256, N, WG, 3>(
+          hq, smem_wg,
+          [&](int jb, const float(&acc)[N / 2]) {
+            if constexpr (L == 1) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const long long j = 256 * jb + 64 * WG + 16 * wi + g + 8 * h;
+                float* trow = out + r * w + (j << log_o) + off;
+#pragma unroll
+                for (int jj = 0; jj < N / 8; ++jj) {
+                  *reinterpret_cast<float2*>(trow + 8 * jj + 2 * tq) =
+                      make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+                }
+              }
+            } else {
+              store_y<N>(acc, 256 * jb + 64 * WG, out + r * w, sb, 1 << log_o, off);
+            }
+          },
+          PLANE);
+    };
+    switch (threadIdx.x >> 7) {
+      case 0: body(std::integral_constant<int, 0>{}); break;
+      case 1: body(std::integral_constant<int, 1>{}); break;
+      case 2: body(std::integral_constant<int, 2>{}); break;
+      default: body(std::integral_constant<int, 3>{}); break;
+    }
+  }
+}
+
+cudaError_t run_f32_tile(int log_w, long long rows, const float* x, const uint32_t* sbits,
+                         float* y, int E, int pre, int post, cudaStream_t st) {
+  switch (log_w) {
+#define LDPC_F32_TILE(LW, LA, LB)                                                  \
+  case LW:                                                                         \
+    return launch(fwht2mm_f32_tile_kernel<LA, LB>, rows, 2 << LB,                  \
+                  3 * (1 << LA) * (1 << LB) * 2, st, x, sbits, y, E, pre, post);
+    LDPC_F32_TILE(12, 6, 6) LDPC_F32_TILE(13, 6, 7) LDPC_F32_TILE(14, 7, 7)
+    LDPC_F32_TILE(15, 7, 8)
+#undef LDPC_F32_TILE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Launch L of the wide layout on vectors of 2^log_k: rows << (log_w - 14)
+// tiles, whichever the launch.
+cudaError_t run_f32_wide(int L, int log_k, int log_o, long long tiles, const float* in,
+                         const uint32_t* sbits, float* out, int E, int sign,
+                         cudaStream_t st) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long blocks = tiles < sms ? tiles : sms;
+  switch (log_k) {
+#define LDPC_F32_WIDE(LK)                                                          \
+  case LK: {                                                                       \
+    constexpr int N = 16384 >> LK;                                                 \
+    constexpr int SMEM = 3 * N * (1 << LK) * 2 + N * ((1 << LK) + 4) * 4;          \
+    return L == 1 ? launch(fwht2mm_f32_wide_kernel<LK, 1>, blocks, 512, SMEM, st, \
+                           in, sbits, out, tiles, log_o, E, sign)                  \
+                  : launch(fwht2mm_f32_wide_kernel<LK, 2>, blocks, 512, SMEM, st, \
+                           in, sbits, out, tiles, log_o, E, sign);                 \
+  }
+    LDPC_F32_WIDE(8) LDPC_F32_WIDE(9) LDPC_F32_WIDE(10)
+#undef LDPC_F32_WIDE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // y = H_a . (x * s . H_b) (apply_pre) or (H_a . (x . H_b)) * s with float32
 // operands (three bf16 planes each) over rows of length 2^log_w, 8 <= log_w
-// <= 20; signs null or (E, 2^log_w), row r using sign row r % E. passes: 3
-// runs the transform; 1 runs pass 1 alone (x -> T in y) and 2 pass 2 alone
-// (in place on y), for timing. x, y and signs must be 16-byte aligned, x
-// and y must not overlap, and E * 2^log_w must stay below 2^31. Returns
-// cudaGetLastError() after the launches (0 on success).
+// <= 20; signs null or (E, 2^log_w), row r using sign row r % E. kernel 0:
+// the mma.sync pass kernels (every width, two launches, T in y between
+// them); 1: the wgmma kernels (log_w >= 12), which take the signs as bits
+// and need sign_bits, E * 2^log_w / 32 words that this call fills, when
+// signs is not null, and scratch, a (rows, 2^log_w) float32 buffer for T,
+// when log_w > 15. passes: 3 runs the transform; where there are two
+// launches (kernel 0, or kernel 1 above 2^15), 1 runs the first alone and 2
+// the second alone, for timing. x, y, signs and scratch must be 16-byte
+// aligned, x and y must not overlap, and E * 2^log_w must stay below 2^31.
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int ldpc_fwht_2mm_f32(const float* x, const float* signs, float* y,
-                                 long long rows, int log_w, int E, int apply_pre,
-                                 int passes, void* stream) {
+                                 float* scratch, uint32_t* sign_bits, long long rows,
+                                 int log_w, int E, int apply_pre, int kernel, int passes,
+                                 void* stream) {
   cudaGetLastError();  // clear a stale error of an earlier call
   if (rows <= 0 || E <= 0 || rows % E != 0 || log_w < 8 || log_w > 20 ||
       passes < 1 || passes > 3 || (static_cast<long long>(E) << log_w) >= (1LL << 31)) {
@@ -1213,8 +1511,37 @@ extern "C" int ldpc_fwht_2mm_f32(const float* x, const float* signs, float* y,
   const int pre = signs != nullptr && apply_pre;
   const int post = signs != nullptr && !apply_pre;
   cudaError_t err = cudaSuccess;
-  if (passes & 1) err = run_f32_pass1(log_w, rows, x, signs, y, E, pre, st);
-  if (err == cudaSuccess && (passes & 2)) err = run_f32_pass2(log_w, rows, signs, y, E, post, st);
+  if (kernel == 0) {
+    if (passes & 1) err = run_f32_pass1(log_w, rows, x, signs, y, E, pre, st);
+    if (err == cudaSuccess && (passes & 2)) {
+      err = run_f32_pass2(log_w, rows, signs, y, E, post, st);
+    }
+    return static_cast<int>(err);
+  }
+  if (kernel != 1 || log_w < 12 || (passes != 3 && log_w <= kTileMaxLog) ||
+      (signs != nullptr && sign_bits == nullptr) ||
+      (log_w > kTileMaxLog && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (signs != nullptr) {
+    const long long n = static_cast<long long>(E) << log_w;
+    err = launch(pack_signs_kernel, (n + 255) / 256, 256, 0, st, signs, sign_bits, n);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    sign_bits = nullptr;
+  }
+  if (log_w <= kTileMaxLog) {
+    return static_cast<int>(run_f32_tile(log_w, rows, x, sign_bits, y, E, pre, post, st));
+  }
+  const int log_a = log_w / 2;
+  const int log_b = log_w - log_a;
+  const long long tiles = rows << (log_w - 14);
+  if (passes & 1) {
+    err = run_f32_wide(1, log_b, log_a, tiles, x, sign_bits, scratch, E, pre, st);
+  }
+  if (err == cudaSuccess && (passes & 2)) {
+    err = run_f32_wide(2, log_a, log_b, tiles, scratch, sign_bits, y, E, post, st);
+  }
   return static_cast<int>(err);
 }
 

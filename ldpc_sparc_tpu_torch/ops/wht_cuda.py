@@ -55,11 +55,18 @@ kernel and layout are a fixed function of the width too (`k2_layout`;
 (the yardstick the `wgmma` tile kernel was measured against).
 
 `mm_dtype="float32"` is the TPU kernel's float32 operand type: T = X . H_b
-stays float32 and no operand is rounded. On a CUDA tensor it runs the
-`mma.sync` pass kernels of `csrc/fwht_2mm.cu` at every width from 2^8 to
-2^20: each float32 operand as three bf16 planes whose sum is exact, two
-launches (H_b along the rows, then H_a along the columns in place), T
-through device memory in float32. Its plain version is
+stays float32 and no operand is rounded. Each float32 operand runs as three
+bf16 planes whose sum is exact, accumulated lo, mid, hi into float32; its
+own table (`k2_layout(log_w, "float32")`):
+
+    log2 w    kernel   layout    the row's intermediate T
+    8 - 11    "mma"    "passes"  crosses device memory in float32, two launches
+    12 - 15   "wgmma"  "tile"    stays on chip, one launch
+    16 - 20   "wgmma"  "wide"    crosses device memory in float32, two launches
+
+The "mma" pass kernels (H_b along the rows, then H_a along the columns in
+place) take every width, by name with `kernel="mma"`: they are the
+yardstick the `wgmma` kernels are timed against. Its plain version is
 `fwht_signed_2mm_ref(..., "float32")`, two float32 matmuls; the two differ
 only in the order of their float32 sums.
 """
@@ -376,16 +383,22 @@ def fwht_signed_2mm_ref(x: torch.Tensor, signs: torch.Tensor | None,
     return y.reshape(R, w)
 
 
-def k2_layout(log_w: int) -> tuple[str, str]:
+def k2_layout(log_w: int, mm_dtype: str = "bfloat16") -> tuple[str, str]:
     """(kernel, layout) K2 takes at width 2^log_w, a fixed table: the
     `mma.sync` kernel below 2^12, where a Hadamard factor is narrower than
     a 64-row `wgmma` tile, and the `wgmma` kernels from there up; layout
     "tile" (the row's intermediate stays on chip, one launch) up to 2^15
-    and "wide" (it crosses device memory in bf16, two launches) above."""
+    and "wide" (it crosses device memory, in bf16 or in float32 by the
+    operand type, two launches) above. Below 2^12 float32 operands take
+    the `mma.sync` pass kernels, layout "passes" (two launches, T through
+    device memory in float32)."""
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype must be one of {sorted(MM_DTYPES)}")
     if not MIN_LOG_W_2MM <= log_w <= MAX_LOG_W_2MM:
         raise ValueError(f"no K2 kernel for width 2^{log_w}")
-    return ("wgmma" if log_w >= WGMMA_MIN_LOG_W else "mma",
-            "tile" if log_w <= TILE_MAX_LOG_W_2MM else "wide")
+    if log_w < WGMMA_MIN_LOG_W:
+        return "mma", "passes" if mm_dtype == "float32" else "tile"
+    return "wgmma", "tile" if log_w <= TILE_MAX_LOG_W_2MM else "wide"
 
 
 def _check_width_2mm(w: int) -> None:
@@ -400,14 +413,12 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
     """K2: the signed FWHT of each row of x (R, w) as two tensor-core
     products; see `fwht_signed_2mm_ref`. The width must lie in [2^8, 2^20]
     on any device. kernel: None takes `k2_layout`'s, "mma" or "wgmma" runs
-    that kernel or raises ("mma" takes up to 2^15, "wgmma" 2^12 and up);
-    float32 operands run the `mma.sync` pass kernels at every width (None
-    or "mma"). passes (timing only; the "wide" layout or float32 operands):
-    1 runs the first launch alone, 2 the second; the result is then not the
-    transform."""
+    that kernel or raises ("wgmma" takes 2^12 and up; "mma" up to 2^15
+    with bf16 operands, and with float32 operands the pass kernels at
+    every width). passes (timing only; where a kernel makes two launches,
+    the "wide" layout or the float32 pass kernels): 1 runs the first launch
+    alone, 2 the second; the result is then not the transform."""
     global LAUNCHES_2MM
-    if mm_dtype not in MM_DTYPES:
-        raise ValueError(f"mm_dtype must be one of {sorted(MM_DTYPES)}")
     if kernel is not None and kernel not in K2_KERNELS:
         raise ValueError(f"kernel must be one of {K2_KERNELS} or None, got {kernel!r}")
     if x.dim() != 2:
@@ -415,21 +426,21 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
     _check_width_2mm(x.shape[1])
     log_w = x.shape[1].bit_length() - 1
     f32 = mm_dtype == "float32"
-    table_kernel, layout = k2_layout(log_w)
+    table_kernel, layout = k2_layout(log_w, mm_dtype)
     if kernel is None:
-        kernel = "mma" if f32 else table_kernel
-    if f32 and kernel != "mma":
-        raise ValueError("float32 operands run the mma.sync pass kernels only "
-                         "(kernel None or 'mma')")
+        kernel = table_kernel
     if kernel == "wgmma" and log_w < WGMMA_MIN_LOG_W:
         raise ValueError(f"the wgmma kernel takes widths from 2^{WGMMA_MIN_LOG_W}, "
                          f"not 2^{log_w}")
-    if kernel == "mma" and layout == "wide" and not f32:
+    if kernel == "mma" and f32:
+        layout = "passes"
+    elif kernel == "mma" and layout == "wide":
         raise ValueError(f"the mma kernel takes widths up to "
                          f"2^{TILE_MAX_LOG_W_2MM}, not 2^{log_w}")
-    if passes not in (1, 2, 3) or (passes != 3 and layout != "wide" and not f32):
-        raise ValueError("passes is 3, or 1 or 2 for float32 operands or a width "
-                         f"above 2^{TILE_MAX_LOG_W_2MM}")
+    if passes not in (1, 2, 3) or (passes != 3 and layout == "tile"):
+        raise ValueError("passes is 3, or 1 or 2 where the kernel makes two "
+                         "launches (a width above 2^15, or float32 operands "
+                         "through kernel 'mma')")
     if x.device.type == "cpu":
         return fwht_signed_2mm_ref(x, signs, apply_pre, mm_dtype)
     if x.device.type != "cuda":
@@ -440,24 +451,19 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
     y = torch.empty_like(x)
     if R == 0:
         return y
-    if f32:
-        status = lib.ldpc_fwht_2mm_f32(
-            x.data_ptr(), None if signs is None else signs.data_ptr(), y.data_ptr(),
-            R, log_w, 1 if signs is None else signs.shape[0], int(apply_pre), passes,
-            _stream(x))
-        _build.check(status, "fwht_signed_2mm")
-        LAUNCHES_2MM += 1
-        return y
-    scratch = (torch.empty(R, w, dtype=torch.bfloat16, device=x.device)
-               if layout == "wide" else None)
     E = 1 if signs is None else signs.shape[0]
     bits = (torch.empty(E, w // 32, dtype=torch.int32, device=x.device)
-            if signs is not None and kernel != "mma" else None)
-    status = lib.ldpc_fwht_2mm(
-        x.data_ptr(), None if signs is None else signs.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        None if bits is None else bits.data_ptr(), R, log_w, E,
-        int(apply_pre), K2_KERNELS.index(kernel), passes, _stream(x))
+            if signs is not None and kernel == "wgmma" else None)
+    scratch = (torch.empty(R, w, dtype=torch.float32 if f32 else torch.bfloat16,
+                           device=x.device) if layout == "wide" else None)
+    args = (None if scratch is None else scratch.data_ptr(),
+            None if bits is None else bits.data_ptr(), R, log_w, E, int(apply_pre),
+            K2_KERNELS.index(kernel), passes, _stream(x))
+    sp = None if signs is None else signs.data_ptr()
+    if f32:
+        status = lib.ldpc_fwht_2mm_f32(x.data_ptr(), sp, y.data_ptr(), *args)
+    else:
+        status = lib.ldpc_fwht_2mm(x.data_ptr(), sp, y.data_ptr(), *args)
     _build.check(status, "fwht_signed_2mm")
     LAUNCHES_2MM += 1
     return y

@@ -21,11 +21,16 @@ register and shared-memory report of K2's kernels and any note that it
 runs a kernel's wgmma instructions one at a time. With --out the numbers
 are also written as JSON. Needs a CUDA device.
 
---mm-dtype float32 runs K2 with float32 operands (the mma.sync pass
-kernels, two launches at every width, each timed singly too) against its
-plain version `fwht_signed_2mm_ref(..., "float32")` within 2.5e-6 of the
-largest entry (both float32; the sums run in another order); its
-operations are three bf16 products (one a plane) and its yardstick the
+--mm-dtype float32 runs K2 with float32 operands (by default both kernels
+that take the width: "wgmma", from 2^12, one launch to 2^15 and two above,
+and "mma", the pass kernels, two launches at every width; where a kernel
+makes two launches each is timed singly too) against its plain version
+`fwht_signed_2mm_ref(..., "float32")` within 2.5e-6 of the largest entry
+(both float32; the sums run in another order), and the two kernels bit for
+bit against each other on ternary rows. Its bound is the transform's own
+work: the bytes as above and w log2 w float32 adds a row at 67 TFLOP/s (as
+K1's `fwht_signed` counts them); beside it stands the reckoning of three
+full bf16 products (one a plane) at 989 TFLOP/s, and its yardstick is the
 pair of cuBLAS float32 products with TF32 off. Beside each reading stands
 a control's: the plain version with both products' operands cut to their
 two upper bf16 planes (`two_plane_ref`), what K2 computes if it drops the
@@ -46,19 +51,33 @@ from .ops import wht_cuda
 from .time_fwht import HBM_BYTES_PER_S, cuda_ms
 
 BF16_FLOPS = 989e12         # H100 SXM, NVIDIA's data sheet, dense bf16
+F32_FLOPS = 67e12           # the same, float32 outside the tensor cores
 REL_BOUND = 1e-3
 F32_ABS_BOUND = 2.5e-6      # float32 operands: max|d| / max|ref|
 PLANES = {"bfloat16": 1, "float32": 3}   # bf16 products a float32 product takes
 
 
 def bounds_ms(rows: int, log_w: int, E: int, mm_dtype: str = "bfloat16") -> dict:
-    """The byte and operation bounds of one transform of (rows, 2^log_w)."""
+    """The byte and operation bounds of one transform of (rows, 2^log_w):
+    the two products' operations (three bf16 products each with float32
+    operands) and, for float32 operands, the transform's own w log2 w adds
+    a row."""
     w = 1 << log_w
     a, b = wht_cuda.split_ab(w)
-    return {"bytes_ms": 4e3 * (2 * rows * w + E * w) / HBM_BYTES_PER_S,
-            "bytes_unsigned_ms": 8e3 * rows * w / HBM_BYTES_PER_S,
-            "operations_ms": 2e3 * PLANES[mm_dtype] * rows * (a * b * b + a * a * b)
-            / BF16_FLOPS}
+    out = {"bytes_ms": 4e3 * (2 * rows * w + E * w) / HBM_BYTES_PER_S,
+           "bytes_unsigned_ms": 8e3 * rows * w / HBM_BYTES_PER_S,
+           "operations_ms": 2e3 * PLANES[mm_dtype] * rows * (a * b * b + a * a * b)
+           / BF16_FLOPS}
+    if mm_dtype == "float32":
+        out["transform_operations_ms"] = 1e3 * rows * w * log_w / F32_FLOPS
+    return out
+
+
+def two_launches(log_w: int, kernel: str, mm_dtype: str) -> bool:
+    """Whether the kernel makes two launches at the width (then each is
+    timed singly)."""
+    return (log_w > wht_cuda.TILE_MAX_LOG_W_2MM
+            or (mm_dtype == "float32" and kernel == "mma"))
 
 
 def two_plane_ref(x: torch.Tensor, signs: torch.Tensor | None,
@@ -103,10 +122,13 @@ def run_width(log_w: int, rows: int, E: int, kernels, reps: int,
     xb = xg.reshape(rows, a, b).to(mm)
     out["library_ms"] = cuda_ms(lambda: ha @ (xb @ hb), reps)
     del xb
+    ops = (f"the transform's w log2 w adds {out['transform_operations_ms']:.4f} ms, "
+           f"three bf16 products {out['operations_ms']:.4f} ms" if f32
+           else f"operations {out['operations_ms']:.4f} ms")
     print(f"2^{log_w} ({rows} rows, E={E}, {mm_dtype} operands): bound bytes "
           f"{out['bytes_ms']:.4f} ms ({out['bytes_unsigned_ms']:.4f} without signs), "
-          f"operations {out['operations_ms']:.4f} ms; cuBLAS {mm_dtype} pair "
-          f"{out['library_ms']:.4f} ms", flush=True)
+          f"{ops}; cuBLAS {mm_dtype} pair {out['library_ms']:.4f} ms", flush=True)
+    ternary = {}
     for kernel in kernels:
         res = {}
         for m, (sg, pre) in modes.items():
@@ -117,6 +139,10 @@ def run_width(log_w: int, rows: int, E: int, kernels, reps: int,
                 bad = int((got != want).sum())
                 raise AssertionError(f"K2 2^{log_w} {kernel} {m}: not bit-equal on "
                                      f"ternary rows ({bad} of {got.numel()} entries)")
+            if m in ternary and not torch.equal(got, ternary[m]):
+                raise AssertionError(f"K2 2^{log_w} {m}: the kernels differ on "
+                                     f"ternary rows")
+            ternary[m] = got
             got = wht_cuda.fwht_signed_2mm(xg, sg, pre, mm_dtype, kernel=kernel)
             want = wht_cuda.fwht_signed_2mm_ref(xg, sg, pre, mm_dtype)
             torch.cuda.synchronize()
@@ -139,7 +165,7 @@ def run_width(log_w: int, rows: int, E: int, kernels, reps: int,
             if ctl is not None:
                 res[m]["control_rel_err"] = ctl
                 text += f" (control without the lo plane {ctl:.2e})"
-            if f32 or log_w > wht_cuda.TILE_MAX_LOG_W_2MM:
+            if two_launches(log_w, kernel, mm_dtype):
                 for p in (1, 2):
                     res[m][f"launch{p}_ms"] = cuda_ms(
                         lambda: wht_cuda.fwht_signed_2mm(xg, sg, pre, mm_dtype,
@@ -159,7 +185,7 @@ def main(argv=None) -> None:
     ap.add_argument("--kernel", choices=wht_cuda.K2_KERNELS, default=None,
                     help="one kernel (default: every kernel that takes the width)")
     ap.add_argument("--mm-dtype", choices=sorted(wht_cuda.MM_DTYPES), default="bfloat16",
-                    help="K2's operand type (float32: the mma.sync pass kernels)")
+                    help="K2's operand type")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--out", default=None, help="write the numbers as JSON here")
@@ -185,13 +211,11 @@ def main(argv=None) -> None:
                 print(ln.strip())
     result = {"card": card, "widths": []}
     for log_w in args.log_w:
-        if args.kernel or args.mm_dtype == "float32":
-            kernels = [args.kernel or "mma"]
-        else:
-            kernels = [k for k, (lo, hi) in (
-                ("mma", (wht_cuda.MIN_LOG_W_2MM, wht_cuda.TILE_MAX_LOG_W_2MM)),
-                ("wgmma", (wht_cuda.WGMMA_MIN_LOG_W, wht_cuda.MAX_LOG_W_2MM)))
-                if lo <= log_w <= hi]
+        mma_top = (wht_cuda.MAX_LOG_W_2MM if args.mm_dtype == "float32"
+                   else wht_cuda.TILE_MAX_LOG_W_2MM)
+        kernels = [args.kernel] if args.kernel else [k for k, (lo, hi) in (
+            ("wgmma", (wht_cuda.WGMMA_MIN_LOG_W, wht_cuda.MAX_LOG_W_2MM)),
+            ("mma", (wht_cuda.MIN_LOG_W_2MM, mma_top))) if lo <= log_w <= hi]
         result["widths"].append(run_width(log_w, args.rows, args.E, kernels, args.reps,
                                           args.mm_dtype))
     if args.out:

@@ -12,10 +12,11 @@ entries in {-1, 0, 1}; K2 (the
 two-sided form, bf16 operands) is bit-exact on rows with entries in
 {-1, 0, 1} up to b = 256 and within chip_smoke.py's relative Frobenius
 bound of 1e-3 of its plain version on Gaussian rows; K2 with float32
-operands (three bf16 planes, float32 sums) is bit-equal to the exact
+operands (three bf16 planes, float32 sums; the wgmma kernels and the
+mma.sync pass kernels) is bit-equal to the exact
 transform on those rows at every width and within 2.5e-6 of the largest
 entry of its plain version (two float32 matmuls, TF32 off) on Gaussian
-rows, a limit between the kernel's readings (at most 1.73e-6, at 2^20) and
+rows, a limit between the kernels' readings (at most 1.81e-6, at 2^20) and
 those of a control without the lo plane (at least 3.25e-6); the denoiser tail uses tests/test_denoiser_pallas.py's tolerances (s
 to rtol 1e-6, the softmax and energies to rtol 1e-5, since exp and the
 sums reassociate), at every section length from 32 to 2^20. The BP decode must give the plain decode's iteration counts
@@ -509,10 +510,12 @@ def test_fwht_signed_2mm_matches_plain(log_w, pre):
 @pytest.mark.parametrize("log_w", list(range(8, 21)))
 @pytest.mark.parametrize("mode", ["pre", "post", "none"])
 def test_fwht_signed_2mm_float32_operands_match_plain(log_w, mode):
-    """K2 with float32 operands: bit-equal to the exact transform on rows
-    with entries in {-1, 0, 1} (every sum is an integer below 2^24), and
-    within 2.5e-6 of the largest entry of its plain version, two float32
-    matmuls at full precision, on Gaussian rows."""
+    """K2 with float32 operands, the kernel `k2_layout(log_w, "float32")`
+    names (the mma.sync pass kernels below 2^12, the wgmma tile layout to
+    2^15, the wgmma wide layout above): bit-equal to the exact transform on
+    rows with entries in {-1, 0, 1} (every sum is an integer below 2^24),
+    and within 2.5e-6 of the largest entry of its plain version, two
+    float32 matmuls at full precision, on Gaussian rows."""
     dev = _card()
     torch.set_float32_matmul_precision("highest")
     w = 1 << log_w
@@ -536,9 +539,36 @@ def test_fwht_signed_2mm_float32_operands_match_plain(log_w, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("log_w", list(range(12, 21)))
+def test_fwht_signed_2mm_float32_kernels_agree(log_w):
+    """From 2^12 both float32-operand kernels take the width: the wgmma one
+    (the table's) and the mma.sync pass kernels give the same bits on
+    ternary rows in every sign mode, and each stays within 2.5e-6 of the
+    largest entry of the plain version on Gaussian rows."""
+    dev = _card()
+    torch.set_float32_matmul_precision("highest")
+    w = 1 << log_w
+    gen = torch.Generator(device=dev).manual_seed(200 + log_w)
+    signs = (torch.randint(0, 2, (2, w), generator=gen, device=dev) * 2 - 1).float()
+    xt = torch.randint(-1, 2, (4, w), generator=gen, device=dev).float()
+    xg = torch.randn(4, w, generator=gen, device=dev)
+    for sg, pre in ((signs, True), (signs, False), (None, True)):
+        a = wht_cuda.fwht_signed_2mm(xt, sg, pre, "float32", kernel="wgmma")
+        b = wht_cuda.fwht_signed_2mm(xt, sg, pre, "float32", kernel="mma")
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        want = wht_cuda.fwht_signed_2mm_ref(xg, sg, pre, "float32")
+        for kernel in ("wgmma", "mma"):
+            got = wht_cuda.fwht_signed_2mm(xg, sg, pre, "float32", kernel=kernel)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 2.5e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_fwht_signed_2mm_rejects_bad_arguments():
-    """float32 operands launch the mma.sync pass kernels (None or "mma") at
-    every width and refuse "wgmma"; bad widths and sign planes raise."""
+    """float32 operands launch the mma.sync pass kernels ("mma") at every
+    width and the wgmma kernels (None, or "wgmma") from 2^12, and refuse
+    "wgmma" below; bad widths and sign planes raise."""
     dev = _card()
     x = torch.zeros(2, 1 << 10, device=dev)
     before = wht_cuda.LAUNCHES_2MM
@@ -546,9 +576,13 @@ def test_fwht_signed_2mm_rejects_bad_arguments():
         y = wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32", kernel=kernel)
         assert torch.equal(y, x)
     assert wht_cuda.LAUNCHES_2MM == before + 2
-    with pytest.raises(ValueError, match="mma"):
-        wht_cuda.fwht_signed_2mm(torch.zeros(2, 1 << 16, device=dev), None, True,
-                                 mm_dtype="float32", kernel="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32", kernel="wgmma")
+    for log_w in (12, 16):
+        z = torch.zeros(2, 1 << log_w, device=dev)
+        y = wht_cuda.fwht_signed_2mm(z, None, True, mm_dtype="float32", kernel="wgmma")
+        assert torch.equal(y, z)
+    assert wht_cuda.LAUNCHES_2MM == before + 4
     with pytest.raises(ValueError):
         wht_cuda.fwht_signed_2mm(torch.zeros(2, 128, device=dev), None, True)
     with pytest.raises(ValueError):
