@@ -64,13 +64,30 @@ products), and drives and times the paths `bench.py` times:
     timed beside K1 and bf16 K2; the headline decode through it (path B);
     `sparc-sweep --fwht-mode 2mm_f32` on the SC code and at two rows of
     `sc_sweep.json` (phase 20). K3 at sections of 2^13, 2^16 and 2^20
-    against its plain version, and a SPARC of L=64, M=8192 (path C, 256
-    codewords) through K1 and K3 against the plain path, both timed (phase
-    21). The port's three examples at full size: `sparc_demo`, one run a
+    against its plain version by every route that takes M (one block a
+    section; from 2^16 the cluster route, a thread-block cluster of blocks a
+    section), each run twice for the same bits and the routes timed in
+    turns; a SPARC of L=64, M=8192 (path C, 256 codewords) and one of L=16,
+    M=2^16, R=0.5 (path D, 16 codewords, K3's cluster route) through K1 and
+    K3 against the plain path, both timed (phase 21). The port's three examples at full size: `sparc_demo`, one run a
     family; `sc_decode_wave` through K2 with float32 operands;
     `concat_probes` at z=150, 3 seeds, held to `concat_probes_tpu.json`,
     and each of its trials through K1 and K4 held to the plain path before
     and after BP (phase 22).
+  * the holds against the reference's committed results that had no chip
+    check: the min-sum waterfalls of `docs/artifacts/minsum_campaign.json`
+    (802.16 r=1/2, 802.11n r=1/2, 802.16 r=3/4, z=27; batch 512, minsum
+    0.7, <= 200 iterations, >= 100 block errors), all 22 points of each
+    through K4, the cliff point and the point nearest BER 1e-4 gated by the
+    two-sample bound on the block error rate, the SNR at BER 1e-4 within
+    0.15 dB (phase 23, 2.5 s on an H100); `concat-sweep --semi-protected`
+    at the three 25-run configurations of
+    `docs/artifacts/concat_sweep_semi.jsonl` (802.11n r=5/6 z=81, M=64),
+    amp_only and sequential at linear SNR 3.333 and 6.0, naive at 6.0,
+    each row held to the artifact's row of the same key, and the
+    prefix-floor law on the port's rows (phase 24, 0.6 s). Phases 21-24 add
+    about 15 s to the script, which took about 230 s in all with the build
+    on an H100.
 
 Each phase prints one line. The line before the last is a JSON
 summary of the kernels, each with its time, its plain version's, the least
@@ -219,10 +236,12 @@ MESH_TRIALS = 16           # sparc_mc_counts at the headline shape on the mesh
 K2F32_ABS_BOUND = 2.5e-6
 K2F32_TERNARY_LOG_W = (8, 12, 15, 16, 19, 20)
 PATH_C = dict(P=15.0, R=1.0, L=64, M=8192)     # LM = 2^19, n = 832
+# path D: sections of 2^16, K3's cluster route (LM = 2^20, n = 512)
+PATH_D, PATH_D_BATCH = dict(P=15.0, R=0.5, L=16, M=1 << 16), 16
 PATH_REPS, PATH_WINDOWS = 3, 3
-# K3 against its plain version at (batch, L, M): path C's, and sections
-# held in shared memory no more (2^16) and fewer than the card's 132
-# multiprocessors (2^20, 32 sections)
+# K3 against its plain version at (batch, L, M): path C's (one block a
+# section), path D's (the cluster route, C = 4), and a batch of 32 sections
+# of 2^20 (clusters of 16, half of each share re-read)
 K3_LONG_SHAPES = ((BATCH, 64, 1 << 13), (16, 16, 1 << 16), (4, 8, 1 << 20))
 # beta_new and sec_en there: rtol as DENOISE_TOL, but an atol far below a
 # softmax entry of 2^20 (about 1e-7), so that every entry is held
@@ -1883,33 +1902,47 @@ def slice_g(dev, card):
               f"rerun decoding nothing): " + "; ".join(table))
 
     # -- 21: K3 at sections of 8192 and more ---------------------------------------
+    # every route that takes M against the plain version, each run twice (the
+    # same bits), then the routes timed in turns on the same inputs
     k3, k3_text = {}, []
     for Bk, Lk, Mk in K3_LONG_SHAPES:
         beta = torch.softmax(3 * torch.randn(Bk, Lk, Mk, generator=gen, device=dev),
                              -1).reshape(Bk, -1)
         azo = 2 * torch.randn(Bk, Lk * Mk, generator=gen, device=dev)
         tau = 0.5 + 1.5 * torch.rand(Bk, Lk, generator=gen, device=dev)
-        got = denoiser_cuda.fused_denoise_update(beta, azo, tau, Mk)
         want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, Mk)
-        torch.cuda.synchronize()
+        routes = [r for r in denoiser_cuda.ROUTES
+                  if r == "block" or Mk >= denoiser_cuda.CLUSTER_MIN_M]
         errs = []
-        for key, g, w_ in zip(DENOISE_TOL, got, want):
-            torch.testing.assert_close(g, w_, rtol=DENOISE_TOL[key][0],
-                                       atol=DENOISE_TOL[key][1] if key == "s"
-                                       else K3_LONG_ATOL)
-            errs.append(float((g - w_).abs().max()))
-        del got, want
+        for route in routes:
+            got = denoiser_cuda.fused_denoise_update(beta, azo, tau, Mk, route)
+            again = denoiser_cuda.fused_denoise_update(beta, azo, tau, Mk, route)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a_) for g, a_ in zip(got, again)):
+                raise AssertionError(f"K3 {route} at ({Bk}, {Lk}, {Mk}): two runs differ")
+            for key, g, w_ in zip(DENOISE_TOL, got, want):
+                torch.testing.assert_close(g, w_, rtol=DENOISE_TOL[key][0],
+                                           atol=DENOISE_TOL[key][1] if key == "s"
+                                           else K3_LONG_ATOL)
+                errs.append(float((g - w_).abs().max()))
+            del got, again
+        del want
         n = Bk * Lk * Mk
-        k3[Mk] = dict(err=max(errs),
-                      ms=cuda_ms(lambda: denoiser_cuda.fused_denoise_update(beta, azo,
-                                                                            tau, Mk)),
+        ms = {r: float("inf") for r in routes}
+        for turn in (routes, routes[::-1]):
+            for r in turn:
+                ms[r] = min(ms[r], cuda_ms(lambda: denoiser_cuda.fused_denoise_update(
+                    beta, azo, tau, Mk, r)))
+        k3[Mk] = dict(err=max(errs), ms=ms,
                       plain_ms=cuda_ms(lambda: denoiser_cuda.fused_denoise_update_ref(
                           beta, azo, tau, Mk), reps=3),
                       bound=least_ms(4 * (4 * n + 2 * Bk * Lk), 8 * n))
-        k3_text.append(f"({Bk}, {Lk}, 2^{Mk.bit_length() - 1}): max|d| s {errs[0]:.2e} "
-                       f"beta_new {errs[1]:.2e} sec_en {errs[2]:.2e}, "
-                       f"{k3[Mk]['ms']:.4f} ms (plain {k3[Mk]['plain_ms']:.4f} ms, bound "
-                       f"{k3[Mk]['bound']['bound_ms']:.4f} ms by "
+        bound = k3[Mk]["bound"]["bound_ms"]
+        k3_text.append(f"({Bk}, {Lk}, 2^{Mk.bit_length() - 1}): max|d| {k3[Mk]['err']:.2e}, "
+                       + ", ".join(f"{r} {v:.4f} ms ({100 * bound / v:.0f} %)"
+                                   for r, v in ms.items())
+                       + f" (default {denoiser_cuda.k3_route(Mk)}; plain "
+                       f"{k3[Mk]['plain_ms']:.4f} ms, bound {bound:.4f} ms by "
                        f"{k3[Mk]['bound']['bound_by']})")
         del beta, azo, tau
 
@@ -1932,14 +1965,40 @@ def slice_g(dev, card):
     tf_c = {k: f"{int(t.min())}-{int(t.max())}" for k, (_, t) in out.items()}
     rate_c = rates(paths, y, design, params, decode, AWGN_VAR)
     del y, beta0, out
-    phase(21, f"K3 at long sections on {card}, against plain (s rtol "
+
+    # path D: L=16, M=2^16 through K1 and K3's cluster route
+    params_d = SparcParams(**PATH_D)
+    design_d = SparcDesign.for_params(params_d, AWGN_VAR, seed=SEED, device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(SEED)
+    bits = bitops.random_bits(g2, PATH_D_BATCH * params_d.bit_len).reshape(
+        PATH_D_BATCH, params_d.bit_len)
+    beta0 = bitops.bits_to_msg_vector(bits, params_d.M)
+    y = awgn_channel(design_d.ab(beta0), AWGN_VAR, g2)
+    out, counts_d = drive(paths, y, design_d, params_d, decode, AWGN_VAR)
+    if counts_d["K1+K3"][1:] != (0, T_MAX - 1) or counts_d["K1+K3"][0] == 0:
+        raise AssertionError(f"path D launches (K1, K2, K3) {counts_d['K1+K3']}")
+    ber_d = {k: float(bit_error_rate(bits, bitops.msg_vector_to_bits(b, params_d.M)).mean())
+             for k, (b, _) in out.items()}
+    if any(v != 0.0 for v in ber_d.values()):
+        raise AssertionError(f"path D BER {ber_d}")
+    gate(out, beta0, PATH_D_BATCH, params_d.L)
+    tf_d = {k: f"{int(t.min())}-{int(t.max())}" for k, (_, t) in out.items()}
+    rate_d = rates(paths, y, design_d, params_d, decode, AWGN_VAR)
+    del y, beta0, out
+    phase(21, f"K3 at long sections on {card}, every route against plain (s rtol "
               f"{DENOISE_TOL['s'][0]:g}, beta_new and sec_en rtol "
-              f"{DENOISE_TOL['beta_new'][0]:g}, atol {K3_LONG_ATOL:g}): " + "; ".join(k3_text)
+              f"{DENOISE_TOL['beta_new'][0]:g}, atol {K3_LONG_ATOL:g}; two runs bit-equal), "
+              "timed in turns with each route's share of the bound: " + "; ".join(k3_text)
               + f" | path C L={params.L} M={params.M} R={params.R} batch {BATCH} (n "
               f"{design.n}, w 2^{design.w.bit_length() - 1}): BER {ber_c}, decisions equal "
               f"to plain, t_final {tf_c}, launches (K1, K2, K3) {counts_c} | AMP "
               f"iterations/s " + ", ".join(f"{k} {v[0]:.1f} (best window {v[1]:.4f} s)"
-                                           for k, v in rate_c.items()))
+                                           for k, v in rate_c.items())
+              + f" | path D L={params_d.L} M=2^16 R={params_d.R} batch {PATH_D_BATCH} (n "
+              f"{design_d.n}, w 2^{design_d.w.bit_length() - 1}, K3 by the cluster route): "
+              f"BER {ber_d}, decisions equal to plain, t_final {tf_d}, launches (K1, K2, K3) "
+              f"{counts_d} | AMP iterations/s " + ", ".join(
+                  f"{k} {v[0]:.1f} (best window {v[1]:.4f} s)" for k, v in rate_d.items()))
 
     # -- 22: the examples ----------------------------------------------------------
     name, seeds, snr = PROBES
@@ -2045,9 +2104,94 @@ def slice_g(dev, card):
          "source": "ldpc_sparc_tpu_torch/csrc/denoise_update.cu",
          "replaces": "ldpc_sparc_tpu/ops/denoiser_pallas.py:67",
          "launches": counts_c["K1+K3"][2], "max_abs_err": k3[1 << 13]["err"],
-         "ms": k3[1 << 13]["ms"], "plain_ms": k3[1 << 13]["plain_ms"],
+         "ms": k3[1 << 13]["ms"]["block"], "plain_ms": k3[1 << 13]["plain_ms"],
          **k3[1 << 13]["bound"], "library_ms": None},
+        # the cluster route at path D's shape, (16, 16, 2^16)
+        {"name": "fused_denoise_update_cluster", "route": "cuda",
+         "source": "ldpc_sparc_tpu_torch/csrc/denoise_update.cu",
+         "replaces": "ldpc_sparc_tpu/ops/denoiser_pallas.py:67",
+         "launches": counts_d["K1+K3"][2], "max_abs_err": k3[1 << 16]["err"],
+         "ms": k3[1 << 16]["ms"]["cluster"], "plain_ms": k3[1 << 16]["plain_ms"],
+         **k3[1 << 16]["bound"], "library_ms": None},
     ]
+
+
+def holds(dev, card):
+    """Phases 23-24: the port held to the two reference results it had not
+    been held to on the card, through K4 (and K1)."""
+    import tempfile
+    from ldpc_sparc_tpu_torch import artifacts
+    from ldpc_sparc_tpu_torch.ops import bp_cuda, wht_cuda
+
+    # -- 23: the min-sum waterfalls of minsum_campaign.json -------------------------
+    t0 = time.perf_counter()
+    text, failed = [], []
+    for code in artifacts.MINSUM_CODES:
+        cfg = artifacts.minsum_config(*code)
+        bp_cuda.LAUNCHES = 0
+        recs = [artifacts.run_campaign_point(cfg, p["snr"], device=dev)
+                for p in cfg["minsum_points"]]
+        n_k4 = bp_cuda.LAUNCHES
+        if n_k4 != sum(r[5] for r in recs) // cfg["protocol"]["batch"]:
+            raise AssertionError(f"min-sum {code}: {n_k4} K4 launches")
+        table = [artifacts.compare_minsum_point(cfg, r) for r in recs]
+        held = []
+        for point in artifacts.minsum_held_points(cfg):
+            [row] = [t for t in table if t["snr"] == point["snr"]]
+            held.append(f"{row['snr']:.4f} dB BLER {row['port']:.5f} (artifact "
+                        f"{row['artifact']:.5f}, bound {row['bound']:.5f})")
+            if not row["ok"]:
+                failed.append(f"{code} at {row['snr']} dB: {row}")
+        snr = artifacts.snr_at_ber([artifacts.record_point(r) for r in recs])
+        want = cfg["snr_at_1e-4_minsum"]
+        if snr is None or not abs(snr - want) <= artifacts.MINSUM_SNR_TOL_DB:
+            raise AssertionError(f"min-sum {code}: SNR at BER 1e-4 {snr} against {want}")
+        text.append(f"{code[0]} r={code[1]}: " + "; ".join(held)
+                    + f"; 22 points, {sum(t['ok'] for t in table)} within their BLER bound "
+                    f"(not gated), {sum(r[5] for r in recs)} blocks, {n_k4} K4 launches; SNR "
+                    f"at BER 1e-4 {snr:.4f} dB (artifact {want:.4f}, |d| "
+                    f"{abs(snr - want):.4f} <= {artifacts.MINSUM_SNR_TOL_DB})")
+    if failed:
+        raise AssertionError("min-sum waterfalls: " + " | ".join(failed))
+    phase(23, f"min-sum waterfalls on {card} against {artifacts.MINSUM_ARTIFACT} (batch 512, "
+              f"minsum 0.7, <= 200 iterations, >= 100 block errors; cliff and BER-1e-4 points "
+              f"gated by the two-sample BLER bound, {time.perf_counter() - t0:.1f} s): "
+              + " | ".join(text))
+
+    # -- 24: concat-sweep --semi-protected against concat_sweep_semi.jsonl ------------
+    t0 = time.perf_counter()
+    text, failed, floors = [], [], {}
+    wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for pp, (cfg, h, art) in sorted(artifacts.semi_configs().items(), reverse=True):
+            rows = artifacts.run_semi_rows(pp, f"{tmp}/{pp}", device=dev)
+            floors[pp] = {}
+            for snr, decoders in artifacts.SEMI_DECODERS.items():
+                for d in decoders:
+                    key = artifacts.semi_row_key(h, d, snr)
+                    got = artifacts.compare_semi_row(rows[key], art[key], cfg["logM"])
+                    if snr == artifacts.SEMI_SNRS[1]:
+                        floors[pp][d] = got["port"]
+                    at_floor = snr == artifacts.SEMI_SNRS[1] and d == "sequential"
+                    if not got["ok"] or (at_floor and got["bound"] > artifacts.SEMI_FLOOR_BOUND):
+                        failed.append(f"{key}: {got}")
+                    text.append(f"{pp} {d} snr {snr:.3f}: {got['port']:.5f} (artifact "
+                                f"{got['artifact']:.5f}; bits {got['bit_bound']:.4f}, frames "
+                                f"{got['frame_bound']:.4f})")
+    launches_h = (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES)
+    failed += artifacts.semi_floor_law(floors)
+    if failed or 0 in launches_h:
+        raise AssertionError(f"semi-protected sweep (launches (K1, K4) {launches_h}): "
+                             + " | ".join(failed))
+    phase(24, f"concat-sweep --semi-protected on {card} against {artifacts.SEMI_ARTIFACT} "
+              f"(802.11n r=5/6 z=81, M=64, R_sparc 0.8, mults 3, 25 runs, the artifact's "
+              f"keys; |d| <= max(bits, frames), the sequential floor's <= "
+              f"{artifacts.SEMI_FLOOR_BOUND}; {time.perf_counter() - t0:.1f} s, launches "
+              f"(K1, K4) {launches_h}): " + "; ".join(text)
+              + " | the prefix-floor law on the port's rows holds: sequential floors "
+              + " < ".join(f"{floors[pp]['sequential']:.5f}" for pp in sorted(floors, reverse=True))
+              + ", naive " + ", ".join(f"{floors[pp]['naive']:.4f}"
+                                       for pp in sorted(floors, reverse=True)) + " > 0.1")
 
 
 def main():
@@ -2272,6 +2416,7 @@ def main():
     sweeps_and_campaign(dev, card)
     slice_f(dev, card)
     slice_g_kernels = slice_g(dev, card)
+    holds(dev, card)
     # K1 as the main path launches it: the two fused products, averaged. Each
     # reads or writes the (rows, w) side once, the (rows, k) side once, the
     # (E, w) signs and the (E, k) int32 indices; w log2(w) adds a row.

@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
                                               i32, i32, i32, i32, ptr]
             lib.ldpc_fwht_2mm_f32.restype = i32
             lib.ldpc_denoise_update.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                                i64, i32, ptr]
+                                                i64, i32, i32, ptr]
             lib.ldpc_denoise_update.restype = i32
             lib.ldpc_bp_decode.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                            i32, i32, i32, i32, ctypes.c_float,

@@ -15,11 +15,21 @@ can hold the port to those files alone:
 * a campaign point: BER within max(5 sigma, 0.02) of the artifact's point
   at the same SNR and of each reference point within 0.1 dB, sigma the
   binomial deviation of both with a burst factor of 8
-  (tests/test_campaign_artifact.py's bound).
+  (tests/test_campaign_artifact.py's bound);
+* a min-sum waterfall point (`minsum_campaign.json`): the block error rate
+  within the two-sample bound above, blocks being independent draws (the
+  campaign's 0.02 BER floor would pass any point there, whose BER is 2e-2 to
+  1e-4); the whole waterfall's SNR at BER 1e-4, interpolated in log BER,
+  within 0.15 dB of the artifact's;
+* a semi-protected concatenated row (`concat_sweep_semi.jsonl`, matched by
+  its store key): BER within the larger of a bit bound, the two-sample
+  bound on bits with a section error counted as logM bit errors, and a frame
+  bound from the two rows' own spread (`semi_bounds`).
 
-`run_sweep_rows` and `run_campaign_point` run the port at an artifact's
-configuration: `sparc_ber_sweep`, and the campaign's per-point counter
-(`_ldpc_block_counts`, one call a batch, through K4 on a card).
+`run_sweep_rows`, `run_campaign_point` and `run_semi_rows` run the port at
+an artifact's configuration: `sparc_ber_sweep`, the campaign's per-point
+counter (`_ldpc_block_counts`, one call a batch, through K4 on a card), and
+`concat-sweep --semi-protected`.
 """
 
 from __future__ import annotations
@@ -42,6 +52,22 @@ K1_SWEEP_ROWS = {"flagship_sweep.json": (3.875, 4.5), "pa_sweep.json": (10.0, 15
                  "sc_sweep.json": (9.5, 11.0)}
 # campaign_tpu.json's 802.16 r=1/2 z=27 A, at its points near 2.0 and 2.4 dB
 CAMPAIGN_SIM_ID, CAMPAIGN_SNRS = 7, (2.013853986772472, 2.3901275025040207)
+# minsum_campaign.json: its three codes, the campaign's default block cap
+# (the artifact's run left it so), and the hold on the SNR at BER 1e-4
+MINSUM_ARTIFACT = "minsum_campaign.json"
+MINSUM_CODES = (("802.16", "1/2"), ("802.11n", "1/2"), ("802.16", "3/4"))
+MINSUM_MAX_BLOCKS, MINSUM_TARGET_BER, MINSUM_SNR_TOL_DB = 400000, 1e-4, 0.15
+# concat_sweep_semi.jsonl: the three configurations at 25 runs a point, held
+# at the sequential decoder's cliff and floor (linear SNR 3.333 and 6.0, the
+# 4th and 10th of the sweep's linspace(2, 6, 10)); naive at the floor only
+SEMI_ARTIFACT, SEMI_RUNS = "concat_sweep_semi.jsonl", 25
+SEMI_PROTECTED = (0.9, 0.8, 0.7)
+SEMI_SNRS = (10 / 3, 6.0)
+SEMI_DECODERS = {SEMI_SNRS[0]: ("amp_only", "sequential"),
+                 SEMI_SNRS[1]: ("amp_only", "sequential", "naive")}
+# half the smallest gap between neighbouring sequential floors (0.0242):
+# a larger bound at the floor could not tell 0.9 from 0.8
+SEMI_FLOOR_BOUND = 0.012
 
 
 def load(name: str) -> dict:
@@ -155,3 +181,154 @@ def run_campaign_point(cfg: dict, snr: float, seed=0, device=None,
         max_blocks=pr["max_blocks"], batch=pr["batch"], dectype=pr["dectype"],
         max_iters=pr["max_iters"], pipelined=False, bp_kernel=bp_kernel, device=device)
     return rec
+
+
+def minsum_config(standard: str, rate: str) -> dict:
+    """The code of `minsum_campaign.json` with this standard and rate:
+    standard, rate, z, ptype, its 22 `minsum_points` (snr, nblocks, nblkerr,
+    nbits, nbiterr, ber), `snr_at_1e-4_minsum`, and the run's `protocol`
+    (batch, dectype, corr_factor, max_iters, min_errors, max_blocks)."""
+    doc = load(MINSUM_ARTIFACT)
+    [cfg] = [c for c in doc["configs"] if (c["standard"], c["rate"]) == (standard, rate)]
+    return dict(cfg, protocol=dict(doc["protocol"], max_blocks=MINSUM_MAX_BLOCKS))
+
+
+def minsum_held_points(cfg: dict) -> tuple[dict, dict]:
+    """The two points of a min-sum waterfall held on the card: its cliff (the
+    last point of a single batch) and the point whose BER lies nearest 1e-4
+    in log."""
+    batch = cfg["protocol"]["batch"]
+    cliff = [p for p in cfg["minsum_points"] if p["nblocks"] == batch][-1]
+    near = min(cfg["minsum_points"],
+               key=lambda p: abs(math.log10(max(p["ber"], 1e-300) / MINSUM_TARGET_BER)))
+    return cliff, near
+
+
+def compare_minsum_point(cfg: dict, record) -> dict:
+    """A campaign record (the 10-field tuple) against the min-sum point of
+    `cfg` at the same SNR: {snr, port, artifact, bound, ok, port_ber,
+    artifact_ber}, port and artifact being block error rates. Raises
+    KeyError where the artifact has no point at the record's SNR."""
+    snr, nblocks, nblkerr = record[4], record[5], record[6]
+    own = [p for p in cfg["minsum_points"] if abs(p["snr"] - snr) < 1e-6]
+    if not own:
+        raise KeyError(f"{cfg['standard']} r={cfg['rate']} has no min-sum point at {snr} dB")
+    a = own[0]
+    port, art = nblkerr / nblocks, a["nblkerr"] / a["nblocks"]
+    bound = two_sample_bound(port, nblocks, art, a["nblocks"])
+    return {"snr": snr, "port": port, "artifact": art, "bound": bound,
+            "ok": abs(port - art) <= bound, "port_ber": record[8] / record[7],
+            "artifact_ber": a["ber"]}
+
+
+def snr_at_ber(points, target: float = MINSUM_TARGET_BER):
+    """The SNR (dB) where a waterfall's BER crosses `target`, interpolated
+    linearly in log BER; the last bracketing pair wins, and a point with no
+    bit error counts a tenth of one (benchmarks/minsum_campaign.py's rule,
+    which made the artifact's `snr_at_1e-4_minsum`). None if the waterfall
+    never reaches the target. Points: dicts with snr, ber and nbits."""
+    pts = sorted((p["snr"], max(p["ber"], 0.1 / max(p.get("nbits", 1), 1)))
+                 for p in points)
+    best = None
+    for (s0, b0), (s1, b1) in zip(pts, pts[1:]):
+        if b0 >= target >= b1:
+            if b0 == b1:
+                best = float(s0)
+                continue
+            f = (math.log10(b0) - math.log10(target)) / (math.log10(b0) - math.log10(b1))
+            best = float(s0 + f * (s1 - s0))
+    if best is not None:
+        return best
+    if pts and pts[-1][1] <= target:
+        return float(pts[-1][0])
+    return None
+
+
+def record_point(record) -> dict:
+    """A campaign record as a waterfall point (snr, nblocks, nblkerr, nbits,
+    nbiterr, ber), the artifact's fields."""
+    return {"snr": record[4], "nblocks": record[5], "nblkerr": record[6],
+            "nbits": record[7], "nbiterr": record[8], "ber": record[8] / record[7]}
+
+
+def semi_configs(runs: int = SEMI_RUNS) -> dict:
+    """{percent_protected: (meta config, store key's hash, {row key: row})}
+    of `concat_sweep_semi.jsonl`'s semi-protected configurations at `runs`
+    runs a point."""
+    lines = [json.loads(ln) for ln in (ARTIFACTS / SEMI_ARTIFACT).read_text().splitlines()
+             if ln.strip()]
+    out = {}
+    for m in lines:
+        cfg = m.get("config")
+        if cfg is None or cfg.get("runs") != runs or not cfg.get("semi_protected"):
+            continue
+        h = m["key"].split(":", 1)[1]
+        out[cfg["percent_protected"]] = (cfg, h, {r["key"]: r for r in lines
+                                                  if r["key"].startswith(f"concat:{h}:")})
+    return out
+
+
+def semi_row_key(cfg_hash: str, decoder: str, snr: float, seed: int = 0) -> str:
+    """The concat-sweep store key of one row (the JAX CLI's)."""
+    return f"concat:{cfg_hash}:{decoder}:snr{snr:.3f}:s{seed}"
+
+
+def semi_bounds(r1: dict, r2: dict, logM: int) -> tuple[float, float]:
+    """(bit bound, frame bound) on |BER1 - BER2| of two concat-sweep rows:
+    Z_999 sqrt(logM (p1 (1 - p1) / bits1 + p2 (1 - p2) / bits2)), a section
+    error flipping up to logM bits; and Z_999 sqrt(((max1 - min1) / 2)^2 /
+    frames1 + ((max2 - min2) / 2)^2 / frames2), from each row's spread of
+    per-frame BER. The hold takes the larger."""
+    bit = Z_999 * math.sqrt(logM * (r1["ber"] * (1 - r1["ber"]) / r1["bits"]
+                                    + r2["ber"] * (1 - r2["ber"]) / r2["bits"]))
+    frame = Z_999 * math.sqrt(((r1["ber_max"] - r1["ber_min"]) / 2) ** 2 / r1["frames"]
+                              + ((r2["ber_max"] - r2["ber_min"]) / 2) ** 2 / r2["frames"])
+    return bit, frame
+
+
+def compare_semi_row(port: dict, art: dict, logM: int) -> dict:
+    """A port row against the artifact's row of the same key: {key, port,
+    artifact, bit_bound, frame_bound, bound, ok}."""
+    bit, frame = semi_bounds(port, art, logM)
+    bound = max(bit, frame)
+    return {"key": art["key"], "port": port["ber"], "artifact": art["ber"],
+            "bit_bound": bit, "frame_bound": frame, "bound": bound,
+            "ok": abs(port["ber"] - art["ber"]) <= bound}
+
+
+def semi_floor_law(floors: dict) -> list[str]:
+    """What fails of the law tests/test_sweep_artifacts.py gates the artifact
+    on: {percent_protected: {decoder: floor BER}} must have the sequential
+    floor rise strictly as percent_protected falls, and naive's stay above
+    0.1 (M=64: BP helps only at small error rates). Empty when it holds."""
+    pps = sorted(floors, reverse=True)
+    seq = [floors[pp]["sequential"] for pp in pps]
+    bad = [] if all(a < b for a, b in zip(seq, seq[1:])) else [
+        f"sequential floors {dict(zip(pps, seq))} do not rise as the protected share falls"]
+    return bad + [f"naive floor {floors[pp]['naive']} <= 0.1 at {pp}" for pp in pps
+                  if "naive" in floors[pp] and not floors[pp]["naive"] > 0.1]
+
+
+def run_semi_rows(percent_protected: float, out, device=None,
+                  runs: int = SEMI_RUNS) -> dict:
+    """The port's `concat-sweep --semi-protected` at the artifact's
+    configuration (802.11n r=5/6 z=81, M=64, R_sparc 0.8, mults 3, t_max 25,
+    P 19.44, seed 0), the decoders of `SEMI_DECODERS` at each of `SEMI_SNRS`
+    into the store under `out`; returns {row key: row} of the store."""
+    import contextlib
+    import io
+
+    from . import cli
+    dev = ["--device", str(device)] if device is not None else []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for snr, decoders in SEMI_DECODERS.items():
+            cli.main(["concat-sweep", "--semi-protected", "--percent-protected",
+                      repr(percent_protected), "--standard", "802.11n", "--rate", "5/6",
+                      "--z", "81", "--mults", "3", "--logM", "6", "--R-sparc", "0.8",
+                      "--t-max", "25", "--P", "19.44", "--runs", str(runs), "--num-snrs", "1",
+                      "--snr-start", repr(snr), "--snr-stop", repr(snr),
+                      "--decoders", ",".join(decoders), "--seed", "0",
+                      "--out", str(out), *dev])
+    path = Path(out) / "concat_sweep_semi.jsonl"
+    rows = [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+    return {r["key"]: r for r in rows}

@@ -11,8 +11,17 @@ On a CUDA tensor the kernel of `csrc/denoise_update.cu` runs, or the call
 raises; on a CPU tensor `fused_denoise_update_ref` runs. `LAUNCHES` counts
 the kernel's launches. The kernel takes every power of two M from 32 to
 2^22, the JAX kernel's range (`denoiser_pallas.use_fused_denoiser` with
-`config.py`'s powers of two): up to 4096 one block holds a section in
-registers, from 8192 one block of 1024 threads walks it three times.
+`config.py`'s powers of two), by one of two routes:
+
+* "block": up to 4096 one block holds a section in registers, from 8192 one
+  block of 1024 threads walks it three times (the default up to 2^15);
+* "cluster" (2^16 to 2^22, the default there): a thread-block cluster of C
+  blocks a section (`cluster_layout`), each block walking its contiguous
+  share, the section's max, sum and energy combined across the cluster in
+  block-rank order.
+
+`route=None` takes the default for M; a route named where it does not take
+M raises, and a cluster launch the card refuses raises too.
 """
 
 from __future__ import annotations
@@ -24,12 +33,32 @@ from ..config import is_power_of_2
 
 LAUNCHES = 0
 MIN_M, MAX_M = 32, 1 << 22
+ROUTES = ("block", "cluster")
+CLUSTER_MIN_M = 1 << 16
+SHARE_LOG, HELD_LOG, CLUSTER_MAX = 14, 15, 16   # a share up to 2^18; held; blocks
 
 
 def fused_eligible(M: int, K: int, is_complex: bool) -> bool:
     """Shapes the fused tail takes: real, unmodulated (K=1), and M a power of
     two in [32, 2^22] (one block per section)."""
     return K == 1 and not is_complex and is_power_of_2(M) and MIN_M <= M <= MAX_M
+
+
+def k3_route(M: int) -> str:
+    """The route `fused_denoise_update` takes for sections of M by default."""
+    return "cluster" if M >= CLUSTER_MIN_M else "block"
+
+
+def cluster_layout(M: int) -> tuple[int, int, int]:
+    """The cluster route's (C, share, held) for sections of M >= 2^16: C
+    blocks a section (M / 2^14, at most 16), block c owning entries
+    [c share, (c + 1) share), the first `held` of them (at most 2^15) kept in
+    shared memory (csrc/denoise_update.cu)."""
+    if not (is_power_of_2(M) and CLUSTER_MIN_M <= M <= MAX_M):
+        raise ValueError(f"the cluster route takes M a power of two in [2^16, 2^22], "
+                         f"not {M}")
+    C = min(M >> SHARE_LOG, CLUSTER_MAX)
+    return C, M // C, min(M // C, 1 << HELD_LOG)
 
 
 def fused_denoise_update_ref(beta: torch.Tensor, azo: torch.Tensor,
@@ -59,9 +88,14 @@ def _check(beta, azo, tau_sec, M) -> None:
 
 
 def fused_denoise_update(beta: torch.Tensor, azo: torch.Tensor,
-                         tau_sec: torch.Tensor, M: int):
-    """One fused AMP tail step; shapes as in `fused_denoise_update_ref`."""
+                         tau_sec: torch.Tensor, M: int, route: str | None = None):
+    """One fused AMP tail step; shapes as in `fused_denoise_update_ref`.
+    route: None (`k3_route(M)`), "block" or "cluster" (M >= 2^16)."""
     global LAUNCHES
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be one of {ROUTES} or None, not {route!r}")
+    if route == "cluster":
+        cluster_layout(M)
     if beta.device.type == "cpu":
         return fused_denoise_update_ref(beta, azo, tau_sec, M)
     if beta.device.type != "cuda":
@@ -76,6 +110,7 @@ def fused_denoise_update(beta: torch.Tensor, azo: torch.Tensor,
     status = lib.ldpc_denoise_update(
         beta.data_ptr(), azo.data_ptr(), tau_sec.data_ptr(), s.data_ptr(),
         beta_new.data_ptr(), sec_en.data_ptr(), tau_sec.numel(), M,
+        {None: 0, "block": 1, "cluster": 2}[route],
         torch.cuda.current_stream(beta.device).cuda_stream)
     _build.check(status, "fused_denoise_update")
     LAUNCHES += 1

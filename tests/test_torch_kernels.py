@@ -219,14 +219,18 @@ def test_fused_denoise_update_matches_plain(M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,L", [(1 << 13, 16), (1 << 14, 8), (1 << 15, 4),
-                                 (1 << 16, 4), (1 << 20, 2)])
-def test_fused_denoise_update_matches_plain_at_long_sections(M, L):
-    """From M = 8192 one block walks a section three times: in shared
-    memory up to 2^15, re-reading s above. The per-entry operations are the
-    register kernel's, so s is bit-equal and only the sums reassociate:
-    beta_new and the energies within rtol 1e-5, with an atol (1e-12) far
-    below a softmax entry of 2^20, so that every entry is held."""
+@pytest.mark.parametrize("M,L,route", [(1 << 13, 16, None), (1 << 14, 8, None),
+                                       (1 << 15, 4, None), (1 << 16, 4, None),
+                                       (1 << 16, 4, "block"), (1 << 20, 2, None),
+                                       (1 << 20, 2, "block")])
+def test_fused_denoise_update_matches_plain_at_long_sections(M, L, route):
+    """From M = 8192 one block walks a section three times, in shared memory
+    up to 2^15 (the default there) and re-reading s above (route "block");
+    from 2^16 the default is a cluster of blocks a section. The per-entry
+    operations are the register kernel's, so s is bit-equal and only the
+    sums reassociate: beta_new and the energies within rtol 1e-5, with an
+    atol (1e-12) far below a softmax entry of 2^20, so that every entry is
+    held."""
     dev = _card()
     B = 2
     gen = torch.Generator(device=dev).manual_seed(M)
@@ -235,13 +239,74 @@ def test_fused_denoise_update_matches_plain_at_long_sections(M, L):
     azo = 4.0 * torch.randn(B, L * M, generator=gen, device=dev)
     tau = 0.5 + torch.rand(B, L, generator=gen, device=dev)
     before = denoiser_cuda.LAUNCHES
-    got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M)
+    got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M, route)
     assert denoiser_cuda.LAUNCHES == before + 1
     want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,B,L", [(1 << 16, 7, 19), (1 << 17, 4, 8), (1 << 18, 3, 3),
+                                   (1 << 19, 2, 3), (1 << 20, 1, 5), (1 << 22, 1, 2)],
+                         ids=lambda v: str(v))
+def test_cluster_route_matches_plain_and_repeats_its_bits(M, B, L):
+    """The cluster route (C = 4, 8, 16 blocks a section with shares of 2^14;
+    16 with shares of 2^15, and of 2^16 and 2^18 with the rest of a share
+    re-read) against the plain version at phase 21's tolerances, on section
+    counts that are no multiple of the card's 132 SMs (133 at 2^16); a
+    second run gives the same bits, since the partials combine in
+    block-rank order."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(M + B)
+    beta = torch.softmax(3 * torch.randn(B, L, M, generator=gen, device=dev),
+                         -1).reshape(B, L * M)
+    azo = 2 * torch.randn(B, L * M, generator=gen, device=dev)
+    tau = 0.5 + 1.5 * torch.rand(B, L, generator=gen, device=dev)
+    before = denoiser_cuda.LAUNCHES
+    got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M)
+    again = denoiser_cuda.fused_denoise_update(beta, azo, tau, M, "cluster")
+    assert denoiser_cuda.LAUNCHES == before + 2
+    want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cluster_route_is_refused_below_its_range():
+    dev = _card()
+    beta = torch.zeros(1, 1 << 15, device=dev)
+    with pytest.raises(ValueError, match="cluster route"):
+        denoiser_cuda.fused_denoise_update(beta, beta, torch.ones(1, 1, device=dev),
+                                           1 << 15, "cluster")
+
+
+@pytest.mark.cuda
+def test_decode_at_sections_of_2_16_through_the_cluster_route():
+    """A plain SPARC at L=16, M=2^16 (LM = 2^20), R=0.5, P=15, awgn_var 1,
+    t_max 25, 4 codewords: through K1 + K3's cluster route (launched at
+    every iteration, frozen rows included) and through the plain path, the
+    same decisions on every codeword that converges and t_final within 1."""
+    dev = _card()
+    params, decode = SparcParams(P=15.0, R=0.5, L=16, M=1 << 16), DecodeParams(t_max=25)
+    design = SparcDesign.for_params(params, 1.0, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bits = bitops.random_bits(gen, 4 * params.bit_len).reshape(4, -1)
+    y = sparc.awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)), 1.0, gen)
+    k3 = denoiser_cuda.LAUNCHES
+    beta_k, t_k = sparc.decode_batch(y, design, params, decode, 1.0)
+    assert denoiser_cuda.LAUNCHES - k3 == decode.t_max - 1
+    beta_p, t_p = sparc.decode_batch(y, design, params, decode, 1.0,
+                                     fused_denoiser=False, fwht_kernel=False)
+    conv = t_p < decode.t_max - 1
+    assert int(conv.sum()) == 4
+    assert torch.equal(beta_k[conv], beta_p[conv]) and int((t_k - t_p).abs().max()) <= 1
+    assert torch.equal(bitops.msg_vector_to_bits(beta_k, params.M), bits)
 
 
 CODES = {
@@ -847,6 +912,47 @@ def test_campaign_point_matches_its_artifact(snr):
     assert bp_cuda.LAUNCHES - before == rec[5] // cfg["protocol"]["batch"]
     table = artifacts.compare_campaign_point(cfg, rec)
     assert len(table) >= 2 and all(c["ok"] for c in table), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", artifacts.MINSUM_CODES, ids="-".join)
+def test_minsum_points_match_their_artifact(code):
+    """minsum_campaign.json at reduced depth: each code's cliff point and its
+    point nearest BER 1e-4 through K4 under the artifact's protocol (batch
+    512, minsum, corr_factor 0.7, <= 200 iterations, >= 100 block errors),
+    the block error rate within the two-sample bound."""
+    dev = _card()
+    cfg = artifacts.minsum_config(*code)
+    for point in artifacts.minsum_held_points(cfg):
+        before = bp_cuda.LAUNCHES
+        rec = artifacts.run_campaign_point(cfg, point["snr"], device=dev)
+        assert bp_cuda.LAUNCHES - before == rec[5] // cfg["protocol"]["batch"]
+        got = artifacts.compare_minsum_point(cfg, rec)
+        assert got["ok"], got
+
+
+@pytest.mark.cuda
+def test_semi_protected_floor_matches_its_artifact():
+    """concat_sweep_semi.jsonl at reduced depth: the sequential decoder's
+    floor (linear SNR 6.0, 25 runs) at percent_protected 0.9 and 0.8,
+    through K1 + K4, each within the bound of `artifacts.compare_semi_row`,
+    which is within 0.012 there; 0.8's above 0.9's."""
+    from ldpc_sparc_tpu_torch import param_calc_semi_protected
+    from ldpc_sparc_tpu_torch.parallel.montecarlo import concat_ber_point
+    dev = _card()
+    ldpc = LdpcParams(standard="802.11n", rate="5/6", z=81)
+    floor, got = artifacts.SEMI_SNRS[1], {}
+    for pp in (0.9, 0.8):
+        cfg, h, rows = artifacts.semi_configs()[pp]
+        _, R_ldpc, L_ldpc, lengths, _ = param_calc_semi_protected(
+            0.8, 3, pp, 64, ldpc, ldpc.rate_float, get_code("802.11n", "5/6", 81).K)
+        sp = SparcParams(P=19.44, R=R_ldpc, L=L_ldpc, M=64)
+        row = concat_ber_point(sp, ldpc, lengths, True, DecodeParams(t_max=25),
+                               19.44 / floor, (0, 0), 25, "sequential", device=dev)
+        got[pp] = artifacts.compare_semi_row(
+            row, rows[artifacts.semi_row_key(h, "sequential", floor)], 6)
+        assert got[pp]["ok"] and got[pp]["bound"] <= artifacts.SEMI_FLOOR_BOUND, got
+    assert got[0.9]["port"] < got[0.8]["port"]
 
 
 def _oracle_llrs(code, n, snr_db=2.0, seed=0):
