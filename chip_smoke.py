@@ -267,6 +267,18 @@ def phase(n, text):
     print(f"phase {n} {text}", flush=True)
 
 
+def zero_launches(*kernels):
+    """Zero the launch counters (`utils/tracing.py`) of `kernels`, "k1" to "k4"."""
+    from ldpc_sparc_tpu_torch.utils import tracing
+    tracing.reset(*(f"{k}.launches" for k in kernels))
+
+
+def n_launched(kernel):
+    """Kernel `kernel`'s launches ("k1" to "k4") since its counter was zeroed."""
+    from ldpc_sparc_tpu_torch.utils import tracing
+    return tracing.counters()[f"{kernel}.launches"]
+
+
 def cuda_ms(fn, reps=20, warmup=3):
     """Mean milliseconds of fn() on the card, by CUDA events."""
     import torch
@@ -468,10 +480,10 @@ def slice_b(dev, card):
     # -- 7: the BP path (bench.py's ldpc_bp_ms_per_block) ------------------------
     code = get_code(*BP_CODE)
     x, llr = bp_inputs(code, BP_SNR_DB, BP_BATCH, SEED, dev)
-    bp_cuda.LAUNCHES = 0
+    zero_launches("k4")
     res = code.decode(llr, BP_ITERS, "sumprod2")
     torch.cuda.synchronize()
-    launches = bp_cuda.LAUNCHES
+    launches = n_launched("k4")
     bit_errs = int(((res.app < 0).int() != x).sum())
     if bit_errs != 0:
         raise AssertionError(f"BP path: {bit_errs} bit errors")
@@ -550,9 +562,9 @@ def slice_b(dev, card):
         return recs, time.perf_counter() - t
 
     campaign(CAMPAIGN_WARM)
-    bp_cuda.LAUNCHES = 0
+    zero_launches("k4")
     recs, dt = campaign(CAMPAIGN_POINTS)
-    launches_c = bp_cuda.LAUNCHES
+    launches_c = n_launched("k4")
     blocks = sum(r[5] for r in recs)
     if len(recs) != CAMPAIGN_POINTS or any(
             len(r) != 10 or r[7] != r[5] * K or not 0 <= r[6] <= r[5] for r in recs):
@@ -758,11 +770,10 @@ def slice_c(dev, card, errs):
              "plain": dict(fused_denoiser=False, fwht_kernel=False)}
     out, counts = {}, {}
     for name, kw in paths.items():
-        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        zero_launches("k1", "k2", "k3")
         out[name] = decode_batch(y, design, params, decode, SC_AWGN, **kw)
         torch.cuda.synchronize()
-        counts[name] = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM,
-                        denoiser_cuda.LAUNCHES)
+        counts[name] = (n_launched("k1"), n_launched("k2"), n_launched("k3"))
     it = SC_T_MAX - 1
     want_counts = {"K1+K3": (2 * it - 1, 0, it), "K2+K3": (0, 2 * it - 1, it),
                    "plain": (0, 0, 0)}
@@ -883,7 +894,7 @@ def slice_d(dev, card, lxor_us):
     import tempfile
     import torch
     from ldpc_sparc_tpu_torch import ConcatCodec, _build, concat_mc_trial_errors
-    from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.ops import bp_cuda, wht_cuda
     from ldpc_sparc_tpu_torch.ops.bridges import (bit_probs_to_section_probs,
                                                   section_probs_to_bit_probs)
     from ldpc_sparc_tpu_torch.parallel.montecarlo import (concat_mc_designs,
@@ -981,17 +992,16 @@ def slice_d(dev, card, lxor_us):
                    "naive": (2 * dp.t_max, dp.t_max), "integrated": (2 * dp.t_max, dp.t_max)}
     counts, errs, outs, worst = {}, {}, {}, 0
     for d in CONCAT_PATHS:
-        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
-        bp_cuda.LAUNCHES = 0
+        zero_launches("k1", "k2", "k3", "k4")
         out_k = codec.decode_batch(ys, designs, dp, d, bi, bf)
         torch.cuda.synchronize()
-        counts[d] = (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES)
-        if wht_cuda.LAUNCHES_2MM or denoiser_cuda.LAUNCHES:
+        counts[d] = (n_launched("k1"), n_launched("k4"))
+        if n_launched("k2") or n_launched("k3"):
             raise AssertionError("the concatenated decode launched K2 or K3")
         out_p = codec.decode_batch(ys, designs, dp, d, bi, bf, fwht_kernel=False,
                                    bp_kernel=False)
         torch.cuda.synchronize()
-        if (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) != counts[d]:
+        if (n_launched("k1"), n_launched("k4")) != counts[d]:
             raise AssertionError("the plain path launched a kernel")
         if out_k.shape != (B, codec.user_bits_len) or out_k.dtype != torch.int32:
             raise AssertionError(f"decode_batch {d}: output {tuple(out_k.shape)} "
@@ -1180,7 +1190,7 @@ def slice_e(dev, card):
     import torch
     from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams
     from ldpc_sparc_tpu_torch.models.sparc import awgn_channel, decode_batch
-    from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.ops import wht_cuda
     from ldpc_sparc_tpu_torch.utils import bits as bitops
 
     params, decode = SparcParams(**MOD), DecodeParams(t_max=MOD_T_MAX)
@@ -1202,13 +1212,13 @@ def slice_e(dev, card):
         var = MOD["P"] / snr
         design = SparcDesign.for_params(params, var, seed=SEED, device=dev)
         g = torch.Generator(device=dev).manual_seed(SEED)
-        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        zero_launches("k1", "k2", "k3")
         bits = bitops.random_bits(g, MOD_BATCH * params.bit_len).reshape(MOD_BATCH, -1)
         beta0 = bitops.bits_to_msg_vector(bits, params.M, params.K)
         y = awgn_channel(design.ab(beta0), var, g)
         got = decode_batch(y, design, params, decode, var)
         torch.cuda.synchronize()
-        launches[snr] = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES)
+        launches[snr] = (n_launched("k1"), n_launched("k2"), n_launched("k3"))
         if launches[snr] != (2 * it, 0, 0):
             raise AssertionError(f"K=4 path launches (K1, K2, K3) {launches[snr]}, "
                                  f"expected {(2 * it, 0, 0)}")
@@ -1254,10 +1264,10 @@ def slice_e(dev, card):
     out2, counts2 = {}, {}
     for name, kw in (("K1", {}), ("K2", dict(fwht_mode="2mm")),
                      ("plain", dict(fwht_kernel=False))):
-        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        zero_launches("k1", "k2", "k3")
         out2[name] = decode_batch(y2, d2, p2, decode, K2MOD_VAR, **kw)
         torch.cuda.synchronize()
-        counts2[name] = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES)
+        counts2[name] = (n_launched("k1"), n_launched("k2"), n_launched("k3"))
     want2 = {"K1": (2 * it - 1, 0, 0), "K2": (0, 2 * it - 1, 0), "plain": (0, 0, 0)}
     if counts2 != want2:
         raise AssertionError(f"K=2 launches (K1, K2, K3) {counts2}, expected {want2}")
@@ -1340,7 +1350,6 @@ def sweeps_and_campaign(dev, card):
     import tempfile
     import torch
     from ldpc_sparc_tpu_torch import artifacts, cli, sparc_se
-    from ldpc_sparc_tpu_torch.ops import bp_cuda
 
     # -- 15: sparc-sweep --modulated, both engines, resumed; the K=1 sweeps ------
     def sweep(out, engine, snr, trials):
@@ -1405,19 +1414,19 @@ def sweeps_and_campaign(dev, card):
     cfg = artifacts.campaign_config(artifacts.CAMPAIGN_SIM_ID)
     parts = []
     for snr in artifacts.CAMPAIGN_SNRS:
-        bp_cuda.LAUNCHES = 0
+        zero_launches("k4")
         t0 = time.perf_counter()
         rec = artifacts.run_campaign_point(cfg, snr, device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if bp_cuda.LAUNCHES != rec[5] // cfg["protocol"]["batch"] or \
+        if n_launched("k4") != rec[5] // cfg["protocol"]["batch"] or \
                 rec[6] < cfg["protocol"]["min_errors"]:
-            raise AssertionError(f"campaign point {rec}: {bp_cuda.LAUNCHES} K4 launches")
+            raise AssertionError(f"campaign point {rec}: {n_launched('k4')} K4 launches")
         checks = artifacts.compare_campaign_point(cfg, rec)
         if len(checks) < 2 or not all(c["ok"] for c in checks):
             raise AssertionError(f"campaign point at {snr} dB: {checks}")
         parts.append(f"{snr:.3f} dB: BER {rec[8] / rec[7]:.4e} ({rec[6]} block errors in "
-                     f"{rec[5]} blocks, {bp_cuda.LAUNCHES} K4 launches, {dt:.2f} s) against "
+                     f"{rec[5]} blocks, {n_launched('k4')} K4 launches, {dt:.2f} s) against "
                      + ", ".join(f"{c['against']} {c['snr']:.3f} dB {c['artifact']:.4e} "
                                  f"(bound {c['bound']:.3g})" for c in checks))
     phase(16, f"campaign {cfg['standard']} r={cfg['rate']} z={cfg['z']} {cfg['ptype']} "
@@ -1441,7 +1450,6 @@ def slice_f(dev, card):
                                       cli, concat_mc_trial_errors, get_code)
     from ldpc_sparc_tpu_torch.io.results import results_txt_to_csv
     from ldpc_sparc_tpu_torch.models.sparc import decode_batch
-    from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
     from ldpc_sparc_tpu_torch.parallel.mesh import make_mesh
     from ldpc_sparc_tpu_torch.parallel.montecarlo import sparc_mc_counts
     from ldpc_sparc_tpu_torch.parallel.sharded import make_sharded_sim_step
@@ -1458,7 +1466,7 @@ def slice_f(dev, card):
     llr = np.stack(rows)
     llr_t = torch.as_tensor(llr, dtype=torch.float32, device=dev)
     parts = []
-    bp_cuda.LAUNCHES = 0
+    zero_launches("k4")
     for dectype in ORACLE_DECTYPES:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1479,7 +1487,7 @@ def slice_f(dev, card):
         parts.append(f"{dectype}: iterations mean/max {float(its.mean()):.2f}/"
                      f"{int(its.max())}, {int((its >= ORACLE_ITERS).sum())} at the cap "
                      f"(K4 decode {k4_s * 1e3:.2f} ms, oracle {oracle_s * 1e3:.1f} ms)")
-    launches = bp_cuda.LAUNCHES
+    launches = n_launched("k4")
     if launches != len(ORACLE_DECTYPES):
         raise AssertionError(f"the oracle check launched K4 {launches} times")
     phase(17, f"K4 vs the port's float64 C++ oracle, {ORACLE_CODE[0]} r={ORACLE_CODE[1]} "
@@ -1509,9 +1517,9 @@ def slice_f(dev, card):
         os.makedirs(cut)
         with open(os.path.join(cut, "ldpc_campaign.jsonl"), "w") as f:
             f.writelines(lines[:CAMPAIGN_CUT])
-        bp_cuda.LAUNCHES = 0
+        zero_launches("k4")
         recs2, printed, _, dt_resume = run_cli(CAMPAIGN_CLI + ["--out", cut])
-        launches_c = bp_cuda.LAUNCHES
+        launches_c = n_launched("k4")
         files = {}
         for name in ("ldpc_campaign.jsonl", "results.txt", "results.csv"):
             with open(os.path.join(full, name)) as a, open(os.path.join(cut, name)) as b:
@@ -1568,19 +1576,19 @@ def slice_f(dev, card):
     mesh = make_mesh()
     try:
         head, dec = SparcParams(P=P, R=R, L=L, M=M), DecodeParams(t_max=T_MAX)
-        wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+        zero_launches("k1", "k3")
         mc = sparc_mc_counts(head, dec, AWGN_VAR, SEED, MESH_TRIALS, mesh=mesh)
         torch.cuda.synchronize()
-        l_mc = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+        l_mc = (n_launched("k1"), n_launched("k3"))
         if mc != sparc_mc_counts(head, dec, AWGN_VAR, SEED, MESH_TRIALS, device=dev) \
                 or min(l_mc) == 0:
             raise AssertionError(f"sparc_mc_counts on a mesh of one: {mc}, launches "
                                  f"(K1, K3) {l_mc}")
         sp, ldpc, lengths, dp_, awgn = concat_problem()
-        wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = 0
+        zero_launches("k1", "k4")
         e_mesh = concat_mc_trial_errors(sp, ldpc, lengths, True, dp_, awgn, CONCAT_SEED,
                                         CONCAT_TRIALS, CONCAT_DECODER, mesh=mesh)
-        l_c = (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES)
+        l_c = (n_launched("k1"), n_launched("k4"))
         e_one = concat_mc_trial_errors(sp, ldpc, lengths, True, dp_, awgn, CONCAT_SEED,
                                        CONCAT_TRIALS, CONCAT_DECODER, device=dev)
         if not np.array_equal(e_mesh, e_one) or min(l_c) == 0:
@@ -1593,12 +1601,12 @@ def slice_f(dev, card):
         seeds = [(SEED, t) for t in range(SC_BATCH)]
         step(seeds)
         torch.cuda.synchronize()
-        wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+        zero_launches("k1", "k3")
         t0 = time.perf_counter()
         c11 = step(seeds)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        l_s = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+        l_s = (n_launched("k1"), n_launched("k3"))
         it = SC_T_MAX - 1
         if l_s != (2 * it, it):
             raise AssertionError(f"the sharded step launched (K1, K3) {l_s}, expected "
@@ -1657,18 +1665,18 @@ def slice_g(dev, card):
     from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams, artifacts, cli
     from ldpc_sparc_tpu_torch.examples import concat_probes, sc_decode_wave, sparc_demo
     from ldpc_sparc_tpu_torch.models.sparc import awgn_channel, decode_batch
-    from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
     from ldpc_sparc_tpu_torch.utils import bits as bitops
     from ldpc_sparc_tpu_torch.utils.metrics import bit_error_rate
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def zero():
-        wht_cuda.LAUNCHES = wht_cuda.LAUNCHES_2MM = denoiser_cuda.LAUNCHES = 0
+        zero_launches("k1", "k2", "k3")
 
     def launches():
         torch.cuda.synchronize()
-        return wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES
+        return n_launched("k1"), n_launched("k2"), n_launched("k3")
 
     def drive(paths, y, design, params, decode, awgn_var):
         """Each path's decode of y with the counts zeroed before it and read
@@ -2025,9 +2033,9 @@ def slice_g(dev, card):
         if k_wave[1] == 0 or k_wave[2] == 0:
             raise AssertionError(f"sc_decode_wave launches (K1, K2, K3) {k_wave}")
         zero()
-        bp_cuda.LAUNCHES = 0
+        zero_launches("k4")
         probes, dt_probes = example(concat_probes, "--seeds", str(seeds), "--snr", str(snr))
-        k_probes = (launches()[0], bp_cuda.LAUNCHES)
+        k_probes = (launches()[0], n_launched("k4"))
         if 0 in k_probes:
             raise AssertionError(f"concat_probes launches (K1, K4) {k_probes}")
     # the probes need BP: every trial again, through K1 and K4 and plain
@@ -2121,17 +2129,16 @@ def holds(dev, card):
     been held to on the card, through K4 (and K1)."""
     import tempfile
     from ldpc_sparc_tpu_torch import artifacts
-    from ldpc_sparc_tpu_torch.ops import bp_cuda, wht_cuda
 
     # -- 23: the min-sum waterfalls of minsum_campaign.json -------------------------
     t0 = time.perf_counter()
     text, failed = [], []
     for code in artifacts.MINSUM_CODES:
         cfg = artifacts.minsum_config(*code)
-        bp_cuda.LAUNCHES = 0
+        zero_launches("k4")
         recs = [artifacts.run_campaign_point(cfg, p["snr"], device=dev)
                 for p in cfg["minsum_points"]]
-        n_k4 = bp_cuda.LAUNCHES
+        n_k4 = n_launched("k4")
         if n_k4 != sum(r[5] for r in recs) // cfg["protocol"]["batch"]:
             raise AssertionError(f"min-sum {code}: {n_k4} K4 launches")
         table = [artifacts.compare_minsum_point(cfg, r) for r in recs]
@@ -2161,7 +2168,7 @@ def holds(dev, card):
     # -- 24: concat-sweep --semi-protected against concat_sweep_semi.jsonl ------------
     t0 = time.perf_counter()
     text, failed, floors = [], [], {}
-    wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = 0
+    zero_launches("k1", "k4")
     with tempfile.TemporaryDirectory() as tmp:
         for pp, (cfg, h, art) in sorted(artifacts.semi_configs().items(), reverse=True):
             rows = artifacts.run_semi_rows(pp, f"{tmp}/{pp}", device=dev)
@@ -2178,7 +2185,7 @@ def holds(dev, card):
                     text.append(f"{pp} {d} snr {snr:.3f}: {got['port']:.5f} (artifact "
                                 f"{got['artifact']:.5f}; bits {got['bit_bound']:.4f}, frames "
                                 f"{got['frame_bound']:.4f})")
-    launches_h = (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES)
+    launches_h = (n_launched("k1"), n_launched("k4"))
     failed += artifacts.semi_floor_law(floors)
     if failed or 0 in launches_h:
         raise AssertionError(f"semi-protected sweep (launches (K1, K4) {launches_h}): "
@@ -2314,8 +2321,7 @@ def main():
     decode = DecodeParams(t_max=T_MAX)
     design = SparcDesign.for_params(params, AWGN_VAR, seed=SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    wht_cuda.LAUNCHES = 0
-    denoiser_cuda.LAUNCHES = 0
+    zero_launches("k1", "k3")
     bits = bitops.random_bits(gen, BATCH * params.bit_len).reshape(
         BATCH, params.bit_len)
     beta0 = bitops.bits_to_msg_vector(bits, M)
@@ -2323,8 +2329,8 @@ def main():
     beta_k, t_k = decode_batch(y, design, params, decode, AWGN_VAR)
     bits_out = bitops.msg_vector_to_bits(beta_k, M)
     torch.cuda.synchronize()
-    launches = {"fwht_signed": wht_cuda.LAUNCHES,
-                "fused_denoise_update": denoiser_cuda.LAUNCHES}
+    launches = {"fwht_signed": n_launched("k1"),
+                "fused_denoise_update": n_launched("k3")}
     ber = float(bit_error_rate(bits, bits_out).mean())
     if ber != 0.0:
         raise AssertionError(f"main path BER {ber} != 0")

@@ -36,6 +36,7 @@ from ..utils import bits as bitops
 from ..utils import rng as rngmod
 from ..utils.metrics import (bit_error_rate, location_value_errors,
                              section_errors)
+from ..utils.tracing import count
 
 
 def design_for_params(params: SparcParams, awgn_var: float, seed,
@@ -165,6 +166,7 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     nmse = [torch.ones_like(psi)]
 
     for t in range(decode.t_max - 1):
+        count("amp.row_iters", B)
         gamma = (psi @ W.T) / Lc                                   # (B, Lr)
         if t == 0:
             z_new = y

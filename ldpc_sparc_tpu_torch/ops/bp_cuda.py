@@ -18,7 +18,8 @@ picks one from the graph, the faster as measured on an H100 (PERF.md).
 
 On a CUDA tensor the kernel of `csrc/bp_decode.cu` runs, or the call
 raises; on a CPU tensor `bp_decode_ref`, the plain decode of `ops/bp.py`,
-runs. `LAUNCHES` counts the kernel's launches.
+runs. The counter `k4.launches` (`utils/tracing.py`) counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.tracing import count
 from .bp import _BIG, BpResult, TannerGraph, _decode_lanes, column_edges, lxor
 
 MAX_SHARED = 232_448     # bytes of shared memory one block may have on sm_90
@@ -37,8 +39,6 @@ VARIANTS = ("check_thread", "split")
 # the largest block of each variant whose launch bound leaves two blocks an SM
 TWO_BLOCK_THREADS = {"check_thread": 512, "split": 704}
 MAX_THREADS = 1024
-
-LAUNCHES = 0
 
 
 def bp_decode_ref(ch: torch.Tensor, graph: TannerGraph, max_iters: int,
@@ -235,7 +235,6 @@ def bp_decode_kernel(ch: torch.Tensor, graph: TannerGraph, max_iters: int,
     "split" runs that one or raises. two_blocks: None takes
     `two_blocks_an_sm`'s choice of compiled kernel, True or False that one
     (for timing; no result depends on it)."""
-    global LAUNCHES
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS} or None, got {variant!r}")
     if ch.device.type == "cpu":
@@ -264,5 +263,5 @@ def bp_decode_kernel(ch: torch.Tensor, graph: TannerGraph, max_iters: int,
         int(two_blocks and threads <= TWO_BLOCK_THREADS[variant]),
         torch.cuda.current_stream(ch.device).cuda_stream)
     _build.check(status, "bp_decode_kernel")
-    LAUNCHES += 1
+    count("k4.launches")
     return BpResult(app=app, iterations=it)

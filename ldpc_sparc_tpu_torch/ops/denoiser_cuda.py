@@ -8,10 +8,11 @@ fused_denoise_update`. Per section of M entries, with tau = tau_sec[..., l]:
     sec_en   = sum(beta_new^2)
 
 On a CUDA tensor the kernel of `csrc/denoise_update.cu` runs, or the call
-raises; on a CPU tensor `fused_denoise_update_ref` runs. `LAUNCHES` counts
-the kernel's launches. The kernel takes every power of two M from 32 to
-2^22, the JAX kernel's range (`denoiser_pallas.use_fused_denoiser` with
-`config.py`'s powers of two), by one of two routes:
+raises; on a CPU tensor `fused_denoise_update_ref` runs. The counter
+`k3.launches` (`utils/tracing.py`) counts the kernel's launches. The
+kernel takes every power of two M from 32 to 2^22, the JAX kernel's range
+(`denoiser_pallas.use_fused_denoiser` with `config.py`'s powers of two),
+by one of two routes:
 
 * "block": up to 4096 one block holds a section in registers, from 8192 one
   block of 1024 threads walks it three times (the default up to 2^15);
@@ -30,8 +31,8 @@ import torch
 
 from .. import _build
 from ..config import is_power_of_2
+from ..utils.tracing import count
 
-LAUNCHES = 0
 MIN_M, MAX_M = 32, 1 << 22
 ROUTES = ("block", "cluster")
 CLUSTER_MIN_M = 1 << 16
@@ -91,7 +92,6 @@ def fused_denoise_update(beta: torch.Tensor, azo: torch.Tensor,
                          tau_sec: torch.Tensor, M: int, route: str | None = None):
     """One fused AMP tail step; shapes as in `fused_denoise_update_ref`.
     route: None (`k3_route(M)`), "block" or "cluster" (M >= 2^16)."""
-    global LAUNCHES
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES} or None, not {route!r}")
     if route == "cluster":
@@ -113,5 +113,5 @@ def fused_denoise_update(beta: torch.Tensor, azo: torch.Tensor,
         {None: 0, "block": 1, "cluster": 2}[route],
         torch.cuda.current_stream(beta.device).cuda_stream)
     _build.check(status, "fused_denoise_update")
-    LAUNCHES += 1
+    count("k3.launches")
     return s, beta_new, sec_en

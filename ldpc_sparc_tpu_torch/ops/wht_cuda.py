@@ -36,8 +36,9 @@ Their plain versions are the zero fill, `scatter_`, transform and
 
 On a CUDA tensor the kernel (`csrc/fwht_signed.cu`, `csrc/fwht_2mm.cu`)
 runs, or the call raises; on a CPU tensor the plain version runs.
-`LAUNCHES` counts K1's launches, the two fused entry points included, and
-`LAUNCHES_2MM` K2's (one per call, however many passes a kernel takes).
+The counter `k1.launches` (`utils/tracing.py`) counts K1's launches, the
+two fused entry points included, and `k2.launches` K2's (one per call,
+however many passes a kernel takes).
 
 K1 is float32 throughout. K2 is the two-sided form H_a . X . H_b on the
 (a, b) view of each row with bf16 operands and float32 accumulation, the
@@ -76,6 +77,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.tracing import count
 from .wht import fwht, hadamard_factor
 
 MAX_LOG_W = 22  # two passes: 2^12 along the rows, 2^10 along the columns
@@ -89,9 +91,6 @@ TILE_MAX_LOG_W_2MM = 15   # above, K2's intermediate crosses device memory
 K2_KERNELS = ("mma", "wgmma")
 WGMMA_MIN_LOG_W = 12      # a = b = 64: one 64-row wgmma tile of each factor
 MM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-LAUNCHES = 0
-LAUNCHES_2MM = 0
 
 
 def fwht_route(log_w: int) -> tuple[str, int]:
@@ -182,7 +181,6 @@ def fwht_signed(x: torch.Tensor, signs: torch.Tensor | None,
     """Signed FWHT of each row of x (R, w); see the module docstring.
     route: None takes `fwht_route`'s; "block", "cluster" or "two_pass"
     runs that route or raises if it cannot take the width."""
-    global LAUNCHES
     if x.device.type == "cpu":
         if route is not None and x.dim() == 2:
             _check_width(x.shape[1])
@@ -202,7 +200,7 @@ def fwht_signed(x: torch.Tensor, signs: torch.Tensor | None,
         x.data_ptr(), None if signs is None else signs.data_ptr(), y.data_ptr(),
         x.shape[0], log_w, E, int(apply_pre), code, _stream(x))
     _build.check(status, "fwht_signed")
-    LAUNCHES += 1
+    count("k1.launches")
     return y
 
 
@@ -280,7 +278,6 @@ def srht_scatter_fwht(vals: torch.Tensor, idx: torch.Tensor,
     the "two_pass" transform. validate=False skips the
     range check of idx (a device synchronisation) for an index set checked
     before, as `SparcDesign` checks its own when it is built."""
-    global LAUNCHES
     _check_small(vals, "vals")
     _check_width(w)
     R, k = vals.shape
@@ -303,7 +300,7 @@ def srht_scatter_fwht(vals: torch.Tensor, idx: torch.Tensor,
         None if signs is None else signs.data_ptr(), y.data_ptr(), R, k,
         w.bit_length() - 1, idx.shape[0], int(apply_pre), code, _stream(vals))
     _build.check(status, "srht_scatter_fwht")
-    LAUNCHES += 1
+    count("k1.launches")
     return y
 
 
@@ -319,7 +316,6 @@ def srht_fwht_gather(x: torch.Tensor, signs: torch.Tensor | None,
     transform in shared memory and writes only the k indexed outputs; widths
     above 2^19 gather from the "two_pass" transform's output. validate: as
     in `srht_scatter_fwht`."""
-    global LAUNCHES
     if x.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"x and idx must be 2-D, got {tuple(x.shape)} and "
                          f"{tuple(idx.shape)}")
@@ -344,7 +340,7 @@ def srht_fwht_gather(x: torch.Tensor, signs: torch.Tensor | None,
         idx32.data_ptr(), out.data_ptr(), R, k, w.bit_length() - 1, idx.shape[0],
         int(apply_pre), code, _stream(x))
     _build.check(status, "srht_fwht_gather")
-    LAUNCHES += 1
+    count("k1.launches")
     return out
 
 
@@ -418,7 +414,6 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
     every width). passes (timing only; where a kernel makes two launches,
     the "wide" layout or the float32 pass kernels): 1 runs the first launch
     alone, 2 the second; the result is then not the transform."""
-    global LAUNCHES_2MM
     if kernel is not None and kernel not in K2_KERNELS:
         raise ValueError(f"kernel must be one of {K2_KERNELS} or None, got {kernel!r}")
     if x.dim() != 2:
@@ -465,5 +460,5 @@ def fwht_signed_2mm(x: torch.Tensor, signs: torch.Tensor | None,
     else:
         status = lib.ldpc_fwht_2mm(x.data_ptr(), sp, y.data_ptr(), *args)
     _build.check(status, "fwht_signed_2mm")
-    LAUNCHES_2MM += 1
+    count("k2.launches")
     return y

@@ -56,6 +56,7 @@ from ..ops.bp import bp_decode
 from ..ops.transforms import DesignStack, stack_designs
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
+from ..utils import tracing
 from ..utils.metrics import location_value_errors
 from .mesh import all_reduce, axis, mesh_device
 
@@ -100,33 +101,45 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
     if n_designs is None:
         n_designs = min(8, n_trials)
     lo, hi, group = _share(n_trials, mesh)
-    designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
+    with tracing.span("mc.designs"):
+        designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
     M, K, L = params.M, params.K, params.L
     totals = torch.zeros(6, dtype=torch.int64, device=device)
     for d, design in enumerate(designs):
-        gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
-                for t in range(d, n_trials, n_designs) if lo <= t < hi]
-        if not gens:
-            continue
-        bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
-        beta0 = bitops.bits_to_msg_vector(bits, M, K)
-        x = design.ab(beta0, fwht_mode=fwht_mode)
-        y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
-        beta, t_final = decode_batch(y, design, params, decode, awgn_var,
-                                     fused_denoiser=fused_denoiser,
-                                     fwht_mode=fwht_mode)
-        bit_errs = (bitops.msg_vector_to_bits(beta, M, K) != bits).sum(-1)
-        if params.modulated:
-            _, (loc_e, val_e, sec_e) = location_value_errors(beta0, beta, L)
-            loc_errs, val_errs = loc_e.sum(), val_e.sum()
-        else:
-            sec_e = (beta != beta0).reshape(-1, L, M).any(-1)
-            loc_errs = val_errs = torch.zeros((), dtype=torch.int64, device=device)
-        totals += torch.stack([bit_errs.sum(), sec_e.sum(), (bit_errs > 0).sum(),
-                               t_final.sum(), loc_errs, val_errs])
-    if group is not None:
-        all_reduce(totals, group)
-    be, se, fe, it, le, ve = totals.tolist()
+        with tracing.span("mc.bits"):
+            gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
+                    for t in range(d, n_trials, n_designs) if lo <= t < hi]
+            if not gens:
+                continue
+            bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
+            beta0 = bitops.bits_to_msg_vector(bits, M, K)
+        with tracing.span("mc.encode"):
+            x = design.ab(beta0, fwht_mode=fwht_mode)
+        with tracing.span("mc.noise"):
+            y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
+        with tracing.span("mc.decode"):
+            beta, t_final = decode_batch(y, design, params, decode, awgn_var,
+                                         fused_denoiser=fused_denoiser,
+                                         fwht_mode=fwht_mode)
+        with tracing.span("mc.count"):
+            bit_errs = (bitops.msg_vector_to_bits(beta, M, K) != bits).sum(-1)
+            if params.modulated:
+                _, (loc_e, val_e, sec_e) = location_value_errors(beta0, beta, L)
+                loc_errs, val_errs = loc_e.sum(), val_e.sum()
+            else:
+                sec_e = (beta != beta0).reshape(-1, L, M).any(-1)
+                loc_errs = val_errs = torch.zeros((), dtype=torch.int64, device=device)
+            totals += torch.stack([bit_errs.sum(), sec_e.sum(), (bit_errs > 0).sum(),
+                                   t_final.sum(), loc_errs, val_errs])
+    with tracing.span("mc.count"):
+        if group is None:
+            be, se, fe, it, le, ve = totals.tolist()
+            live = it
+        else:       # this rank's rows run, beside the sums over 'dp'
+            local = totals[3:4].clone()
+            all_reduce(totals, group)
+            be, se, fe, it, le, ve, live = torch.cat([totals, local]).tolist()
+    tracing.count("amp.live_row_iters", live)
     counts = {"bit_errs": be, "bits": n_trials * params.bit_len,
               "sec_errs": se, "sections": n_trials * L,
               "frame_errs": fe, "frames": n_trials, "iters": it}

@@ -50,7 +50,7 @@ def run(args, mesh) -> dict:
     the kernel launches it made."""
     import torch
     from ..device import resolve_device
-    from ..ops import denoiser_cuda, wht_cuda
+    from ..utils import tracing
     from .mesh import mesh_device
     from .montecarlo import sparc_mc_counts
     from .sharded import make_sharded_sim_step
@@ -69,14 +69,15 @@ def run(args, mesh) -> dict:
     work()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+    tracing.reset("k1.launches", "k3.launches")
     t0 = time.perf_counter()
     counts = work()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    launched = tracing.counters()
     return {"counts": counts, "seconds": time.perf_counter() - t0,
-            "launches": {"fwht_signed": wht_cuda.LAUNCHES,
-                         "fused_denoise_update": denoiser_cuda.LAUNCHES}}
+            "launches": {"fwht_signed": launched["k1.launches"],
+                         "fused_denoise_update": launched["k3.launches"]}}
 
 
 def worker(args) -> None:

@@ -6,7 +6,8 @@ Counterpart of `ldpc_sparc_tpu/utils/profiling.py`:
     card synchronised before the clock starts and after the last call
     whenever the result holds a CUDA tensor
   * `trace(path)`: `torch.profiler` around a block, written as a Chrome
-    trace (open it in Perfetto or chrome://tracing)
+    trace (open it in Perfetto or chrome://tracing), with the program's
+    spans (`utils/tracing.py`) on the kernels' timeline
   * `fwht_width`, `amp_iteration_flops`, `amp_iteration_hbm_bytes`,
     `bp_iteration_flops`: the JAX package's models, which give the same
     integers for the same arguments. `backend="xla"` counts the Kronecker
@@ -61,7 +62,10 @@ def timed(fn: Callable, *args, reps: int = 1, warmup: int = 1, **kw):
 @contextlib.contextmanager
 def trace(path: str = "trace.json"):
     """`with trace('t.json'): run()` records the CPU and, where there is a
-    card, its kernels, and writes a Chrome trace to `path`."""
+    card, its kernels, and writes a Chrome trace to `path`. The program's
+    spans (`utils/tracing.span`: `mc.designs`, `mc.decode`, ...) record
+    while it runs, so the trace shows them on the host's row, on the
+    kernels' timeline."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

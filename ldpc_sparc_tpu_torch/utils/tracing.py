@@ -1,0 +1,65 @@
+"""The port's spans and counters.
+
+  * `span(name)`: a named range on `torch.profiler`'s host timeline, which
+    the profiler aligns with the card's kernels, so that a trace shows what
+    the program was doing while the card ran or idled. With no profiler
+    recording it is one shared no-op context: the profiler being on is the
+    only switch, and a span then costs one flag check.
+  * `count(name, n=1)`, `counters()`, `reset(*names)`: process-wide host
+    integers. Counting never synchronises the card and launches nothing;
+    `n` is a Python int the caller already holds.
+
+Spans (`parallel/montecarlo.py::sparc_mc_counts`, one point):
+
+    mc.designs   the seeded designs' build and upload         1
+    mc.bits      each design's trial generators and bits      n_designs
+    mc.encode    each design's encode, A beta0                n_designs
+    mc.noise     each design's AWGN draws                     n_designs
+    mc.decode    each design's `decode_batch`                 n_designs
+    mc.count     each design's error counts, and the read     n_designs + 1
+
+Counters:
+
+    amp.row_iters       rows each AMP iteration computes (`amp_decode`)
+    amp.live_row_iters  of those, the rows still running: the sum of the
+                        decodes' t_final (`sparc_mc_counts`)
+    k1.launches .. k4.launches   launches of the hand-written kernels
+                        (`ops/wht_cuda.py` K1 and K2, `ops/denoiser_cuda.py`
+                        K3, `ops/bp_cuda.py` K4)
+"""
+
+from __future__ import annotations
+
+import contextlib
+from collections import Counter
+
+import torch
+
+_OFF = contextlib.nullcontext()
+_COUNTS: Counter = Counter()
+
+
+def span(name: str):
+    """`with span("mc.decode"): ...` marks the block on the profiler's
+    timeline while a profiler records; else the shared no-op."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add host integer `n` to counter `name`."""
+    _COUNTS[name] += n
+
+
+def counters() -> Counter:
+    """A copy of every counter (a name never counted reads 0)."""
+    return Counter(_COUNTS)
+
+
+def reset(*names: str) -> None:
+    """Zero the counters `names`, or every counter when none is named."""
+    if not names:
+        _COUNTS.clear()
+    for name in names:
+        _COUNTS.pop(name, None)

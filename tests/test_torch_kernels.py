@@ -36,6 +36,7 @@ from ldpc_sparc_tpu_torch.models.ldpc_tables import get_protograph
 from ldpc_sparc_tpu_torch.ops import bp_cuda, denoiser_cuda, wht_cuda
 from ldpc_sparc_tpu_torch.ops.bp import TannerGraph
 from ldpc_sparc_tpu_torch.utils import bits as bitops
+from ldpc_sparc_tpu_torch.utils.tracing import counters, reset
 
 
 def _card():
@@ -57,9 +58,9 @@ def test_fwht_signed_matches_plain(log_w, mode):
     x = torch.randn(B * E, w, generator=gen, device=dev)
     signs = None if mode == "none" else (
         torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
-    before = wht_cuda.LAUNCHES
+    before = counters()["k1.launches"]
     got = wht_cuda.fwht_signed(x, signs, mode == "pre")
-    assert wht_cuda.LAUNCHES == before + 1
+    assert counters()["k1.launches"] == before + 1
     want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -88,9 +89,9 @@ def test_fwht_signed_every_route_matches_plain(log_w, route, mode):
             x = (torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
                  if kind == "ternary" else
                  torch.randn(rows, w, generator=gen, device=dev))
-            before = wht_cuda.LAUNCHES
+            before = counters()["k1.launches"]
             got = wht_cuda.fwht_signed(x, signs, mode == "pre", route=route)
-            assert wht_cuda.LAUNCHES == before + 1
+            assert counters()["k1.launches"] == before + 1
             want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
             torch.cuda.synchronize()
             if kind == "ternary":
@@ -155,11 +156,11 @@ def test_fused_srht_products_match_plain(rows, E, k, log_w, signed):
         sg = signs if signed == "signs" else None
         for apply_pre in (False, True):
             for ix in (idx, idx.to(torch.int32)):
-                before = wht_cuda.LAUNCHES
+                before = counters()["k1.launches"]
                 got_s = wht_cuda.srht_scatter_fwht(vals, ix, sg, 1 << log_w,
                                                    apply_pre=apply_pre)
                 got_g = wht_cuda.srht_fwht_gather(x, sg, ix, apply_pre=apply_pre)
-                assert wht_cuda.LAUNCHES == before + 2
+                assert counters()["k1.launches"] == before + 2
             want_s = wht_cuda.srht_scatter_fwht_ref(vals, idx, sg, 1 << log_w,
                                                     apply_pre)
             want_g = wht_cuda.srht_fwht_gather_ref(x, sg, idx, apply_pre)
@@ -238,9 +239,9 @@ def test_fused_denoise_update_matches_plain_at_long_sections(M, L, route):
                          -1).reshape(B, L * M)
     azo = 4.0 * torch.randn(B, L * M, generator=gen, device=dev)
     tau = 0.5 + torch.rand(B, L, generator=gen, device=dev)
-    before = denoiser_cuda.LAUNCHES
+    before = counters()["k3.launches"]
     got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M, route)
-    assert denoiser_cuda.LAUNCHES == before + 1
+    assert counters()["k3.launches"] == before + 1
     want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
@@ -265,10 +266,10 @@ def test_cluster_route_matches_plain_and_repeats_its_bits(M, B, L):
                          -1).reshape(B, L * M)
     azo = 2 * torch.randn(B, L * M, generator=gen, device=dev)
     tau = 0.5 + 1.5 * torch.rand(B, L, generator=gen, device=dev)
-    before = denoiser_cuda.LAUNCHES
+    before = counters()["k3.launches"]
     got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M)
     again = denoiser_cuda.fused_denoise_update(beta, azo, tau, M, "cluster")
-    assert denoiser_cuda.LAUNCHES == before + 2
+    assert counters()["k3.launches"] == before + 2
     want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
     torch.cuda.synchronize()
     assert all(torch.equal(g, a) for g, a in zip(got, again))
@@ -298,9 +299,9 @@ def test_decode_at_sections_of_2_16_through_the_cluster_route():
     gen = torch.Generator(device=dev).manual_seed(0)
     bits = bitops.random_bits(gen, 4 * params.bit_len).reshape(4, -1)
     y = sparc.awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)), 1.0, gen)
-    k3 = denoiser_cuda.LAUNCHES
+    k3 = counters()["k3.launches"]
     beta_k, t_k = sparc.decode_batch(y, design, params, decode, 1.0)
-    assert denoiser_cuda.LAUNCHES - k3 == decode.t_max - 1
+    assert counters()["k3.launches"] - k3 == decode.t_max - 1
     beta_p, t_p = sparc.decode_batch(y, design, params, decode, 1.0,
                                      fused_denoiser=False, fwht_kernel=False)
     conv = t_p < decode.t_max - 1
@@ -341,10 +342,10 @@ def test_decode_kernel_path_matches_plain_path():
     bits = bitops.random_bits(gen, 4 * params.bit_len).reshape(4, -1)
     y = sparc.awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)),
                            1.0, gen)
-    k1, k3 = wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES
+    k1, k3 = counters()["k1.launches"], counters()["k3.launches"]
     beta_k, t_k = sparc.decode_batch(y, design, params, decode, 1.0)
-    assert wht_cuda.LAUNCHES - k1 == 2 * (t_max - 1) - 1
-    assert denoiser_cuda.LAUNCHES - k3 == t_max - 1
+    assert counters()["k1.launches"] - k1 == 2 * (t_max - 1) - 1
+    assert counters()["k3.launches"] - k3 == t_max - 1
     beta_p, t_p = sparc.decode_batch(y, design, params, decode, 1.0,
                                      fused_denoiser=False, fwht_kernel=False)
     assert torch.equal(beta_k, beta_p) and torch.equal(t_k, t_p)
@@ -395,10 +396,10 @@ def test_bp_decode_kernel_matches_plain(name, batch, variant):
     cfg, method, snr = BP_CASES[name]
     code, x, llr = _bp_inputs(cfg, snr, batch, dev)
     correction = method != "minsum"
-    before = bp_cuda.LAUNCHES
+    before = counters()["k4.launches"]
     got = bp_cuda.bp_decode_kernel(llr, code.graph, BP_ITERS, correction, 0.7,
                                    variant=variant)
-    assert bp_cuda.LAUNCHES == before + 1
+    assert counters()["k4.launches"] == before + 1
     want = bp_cuda.bp_decode_ref(llr, code.graph, BP_ITERS, correction, 0.7)
     torch.cuda.synchronize()
     assert got.app.shape == (batch, code.N) and got.iterations.dtype == torch.int32
@@ -492,11 +493,11 @@ def test_bp_paths_on_the_card():
     gives the serial loop's records."""
     dev = _card()
     code, x, llr = _bp_inputs(("802.11n", "1/2", 27, "A"), 2.0, 64, dev)
-    before = bp_cuda.LAUNCHES
+    before = counters()["k4.launches"]
     k = code.decode(llr, 50, "sumprod2")
-    assert bp_cuda.LAUNCHES == before + 1
+    assert counters()["k4.launches"] == before + 1
     p = code.decode(llr, 50, "sumprod2", bp_kernel=False)
-    assert bp_cuda.LAUNCHES == before + 1
+    assert counters()["k4.launches"] == before + 1
     _bp_gate(k, p, 50)
     params = LdpcParams(standard="802.16", rate="1/2", z=27, ptype="A")
     kw = dict(seed=0, n_measurements=3, min_errors=20, max_blocks=2048,
@@ -524,9 +525,9 @@ def test_fwht_signed_2mm_exact_on_ternary_rows(log_w, mode, E):
     x = torch.randint(-1, 2, (rows, w), generator=gen, device=dev).float()
     signs = None if mode == "none" else (
         torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
-    before = wht_cuda.LAUNCHES_2MM
+    before = counters()["k2.launches"]
     got = wht_cuda.fwht_signed_2mm(x, signs, mode == "pre")
-    assert wht_cuda.LAUNCHES_2MM == before + 1
+    assert counters()["k2.launches"] == before + 1
     want = wht_cuda.fwht_signed_ref(x, signs, mode == "pre")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -590,9 +591,9 @@ def test_fwht_signed_2mm_float32_operands_match_plain(log_w, mode):
         torch.randint(0, 2, (E, w), generator=gen, device=dev) * 2 - 1).float()
     pre = mode == "pre"
     xt = torch.randint(-1, 2, (2 * E, w), generator=gen, device=dev).float()
-    before = wht_cuda.LAUNCHES_2MM
+    before = counters()["k2.launches"]
     got = wht_cuda.fwht_signed_2mm(xt, signs, pre, mm_dtype="float32")
-    assert wht_cuda.LAUNCHES_2MM == before + 1
+    assert counters()["k2.launches"] == before + 1
     want = wht_cuda.fwht_signed_ref(xt, signs, pre)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -636,18 +637,18 @@ def test_fwht_signed_2mm_rejects_bad_arguments():
     "wgmma" below; bad widths and sign planes raise."""
     dev = _card()
     x = torch.zeros(2, 1 << 10, device=dev)
-    before = wht_cuda.LAUNCHES_2MM
+    before = counters()["k2.launches"]
     for kernel in (None, "mma"):
         y = wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32", kernel=kernel)
         assert torch.equal(y, x)
-    assert wht_cuda.LAUNCHES_2MM == before + 2
+    assert counters()["k2.launches"] == before + 2
     with pytest.raises(ValueError, match="wgmma"):
         wht_cuda.fwht_signed_2mm(x, None, True, mm_dtype="float32", kernel="wgmma")
     for log_w in (12, 16):
         z = torch.zeros(2, 1 << log_w, device=dev)
         y = wht_cuda.fwht_signed_2mm(z, None, True, mm_dtype="float32", kernel="wgmma")
         assert torch.equal(y, z)
-    assert wht_cuda.LAUNCHES_2MM == before + 4
+    assert counters()["k2.launches"] == before + 4
     with pytest.raises(ValueError):
         wht_cuda.fwht_signed_2mm(torch.zeros(2, 128, device=dev), None, True)
     with pytest.raises(ValueError):
@@ -680,13 +681,14 @@ def _check_sc_decode_launches(M, through_k2):
     bits = bitops.random_bits(gen, 4 * params.bit_len).reshape(4, -1)
     beta0 = bitops.bits_to_msg_vector(bits, params.M)
     y = sparc.awgn_channel(design.ab(beta0), 1.0, gen)
-    k1, k2, k3 = wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM, denoiser_cuda.LAUNCHES
+    before = counters()
+    k1, k2, k3 = (before[f"k{i}.launches"] for i in (1, 2, 3))
     beta, _ = sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0,
                                  fwht_mode="2mm")
     products = 2 * (t_max - 1) - 1
-    assert wht_cuda.LAUNCHES - k1 == (0 if through_k2 else products)
-    assert wht_cuda.LAUNCHES_2MM - k2 == (products if through_k2 else 0)
-    assert denoiser_cuda.LAUNCHES - k3 == t_max - 1
+    assert counters()["k1.launches"] - k1 == (0 if through_k2 else products)
+    assert counters()["k2.launches"] - k2 == (products if through_k2 else 0)
+    assert counters()["k3.launches"] - k3 == t_max - 1
     assert torch.equal(beta, beta0)
 
 
@@ -721,16 +723,16 @@ def test_concat_decode_through_k1_k4_matches_plain(decoder, snr):
     codec, designs, user_bits, ys = _concat_z27(dev, snr)
     dp = DecodeParams(t_max=25)
     assert (designs.w, designs.offset, designs.D) == (1 << 13, 1, 8)
-    wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+    reset("k1.launches", "k4.launches", "k3.launches")
     got = codec.decode_batch(ys, designs, dp, decoder)
     torch.cuda.synchronize()
     want_counts = (49, 1) if decoder == "sequential" else (50, 25)
-    assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == want_counts
-    assert denoiser_cuda.LAUNCHES == 0
+    assert (counters()["k1.launches"], counters()["k4.launches"]) == want_counts
+    assert counters()["k3.launches"] == 0
     plain = codec.decode_batch(ys, designs, dp, decoder, fwht_kernel=False,
                                bp_kernel=False)
     torch.cuda.synchronize()
-    assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == want_counts
+    assert (counters()["k1.launches"], counters()["k4.launches"]) == want_counts
     e_k, e_p = (got != user_bits).sum(-1), (plain != user_bits).sum(-1)
     assert bool((e_k[e_p == 0] == 0).all()), (e_k.tolist(), e_p.tolist())
     assert int((e_k - e_p).abs().max()) <= 0.01 * codec.user_bits_len
@@ -788,12 +790,12 @@ def test_amp_decode_through_k1_k3_matches_the_jax_fixture(fused):
     params = SparcParams(P=c["P"], R=c["R"], L=c["L"], M=c["M"])
     design = SparcDesign.for_params(params, c["awgn_var"], c["design_seed"], device=dev)
     y = torch.as_tensor(load("amp_y"), device=dev)
-    wht_cuda.LAUNCHES = denoiser_cuda.LAUNCHES = 0
+    reset("k1.launches", "k3.launches")
     beta, t_final = sparc.decode_batch(y, design, params, DecodeParams(t_max=c["t_max"]),
                                        c["awgn_var"], fused_denoiser=fused)
     torch.cuda.synchronize()
-    assert wht_cuda.LAUNCHES == 2 * (c["t_max"] - 1) - 1
-    assert denoiser_cuda.LAUNCHES == (0 if fused is False else c["t_max"] - 1)
+    assert counters()["k1.launches"] == 2 * (c["t_max"] - 1) - 1
+    assert counters()["k3.launches"] == (0 if fused is False else c["t_max"] - 1)
     sections = beta.reshape(meta["n_codewords"], c["L"], c["M"]).argmax(-1).cpu()
     assert torch.equal(sections, torch.as_tensor(load("amp_sections")).long())
     want_t = torch.tensor(c["t_final"])
@@ -819,11 +821,12 @@ def test_concat_decode_through_k1_k4_matches_the_jax_fixture():
     bits = {k: torch.as_tensor(np.unpackbits(load(k), axis=-1)[:, :codec.user_bits_len]
                                .astype(np.int32), device=dev)
             for k in ("concat_user_bits", "concat_bits_out")}
-    wht_cuda.LAUNCHES = bp_cuda.LAUNCHES = 0
+    reset("k1.launches", "k4.launches")
     got = codec.decode_batch(torch.as_tensor(load("concat_y"), device=dev), designs,
                              DecodeParams(t_max=c["t_max"]), c["decoder"])
     torch.cuda.synchronize()
-    assert (wht_cuda.LAUNCHES, bp_cuda.LAUNCHES) == (2 * c["t_max"], c["t_max"])
+    assert counters()["k1.launches"] == 2 * c["t_max"]
+    assert counters()["k4.launches"] == c["t_max"]
     assert torch.equal(got, bits["concat_bits_out"])
     assert (got != bits["concat_user_bits"]).sum(-1).tolist() == c["errors"]
 
@@ -847,13 +850,13 @@ def test_modulated_decode_through_k1_matches_plain(engine):
     gen = torch.Generator(device=dev).manual_seed(1)
     bits = bitops.random_bits(gen, B * params.bit_len).reshape(B, -1)
     beta0 = bitops.bits_to_msg_vector(bits, params.M, params.K)
-    k1, k2 = wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM
+    k1, k2 = counters()["k1.launches"], counters()["k2.launches"]
     y = sparc.awgn_channel(design.ab(beta0, fwht_mode="2mm"), 1.0, gen)
     beta_k, t_k = sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0,
                                      fwht_mode="2mm")
     torch.cuda.synchronize()
-    assert wht_cuda.LAUNCHES - k1 == (2 * (t_max - 1) if engine == "srht" else 0)
-    assert wht_cuda.LAUNCHES_2MM == k2            # complex data never takes K2
+    assert counters()["k1.launches"] - k1 == (2 * (t_max - 1) if engine == "srht" else 0)
+    assert counters()["k2.launches"] == k2            # complex data never takes K2
     beta_p, t_p = sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0,
                                      fwht_kernel=False)
     conv = t_p < t_max - 1
@@ -876,9 +879,9 @@ def test_complex_srht_products_match_plain():
         z = torch.complex(torch.randn(3, td.n, generator=gen, device=dev),
                           torch.randn(3, td.n, generator=gen, device=dev))
         for prod, v in ((td.ab, beta), (td.az, z)):
-            before = wht_cuda.LAUNCHES
+            before = counters()["k1.launches"]
             got = prod(v)
-            assert wht_cuda.LAUNCHES == before + 1
+            assert counters()["k1.launches"] == before + 1
             want = prod(v, fwht_kernel=False)
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -906,10 +909,10 @@ def test_campaign_point_matches_its_artifact(snr):
     of the artifact's point and of the reference points within 0.1 dB."""
     dev = _card()
     cfg = artifacts.campaign_config(artifacts.CAMPAIGN_SIM_ID)
-    before = bp_cuda.LAUNCHES
+    before = counters()["k4.launches"]
     rec = artifacts.run_campaign_point(cfg, snr, device=dev)
     assert rec[6] >= cfg["protocol"]["min_errors"]
-    assert bp_cuda.LAUNCHES - before == rec[5] // cfg["protocol"]["batch"]
+    assert counters()["k4.launches"] - before == rec[5] // cfg["protocol"]["batch"]
     table = artifacts.compare_campaign_point(cfg, rec)
     assert len(table) >= 2 and all(c["ok"] for c in table), table
 
@@ -924,9 +927,9 @@ def test_minsum_points_match_their_artifact(code):
     dev = _card()
     cfg = artifacts.minsum_config(*code)
     for point in artifacts.minsum_held_points(cfg):
-        before = bp_cuda.LAUNCHES
+        before = counters()["k4.launches"]
         rec = artifacts.run_campaign_point(cfg, point["snr"], device=dev)
-        assert bp_cuda.LAUNCHES - before == rec[5] // cfg["protocol"]["batch"]
+        assert counters()["k4.launches"] - before == rec[5] // cfg["protocol"]["batch"]
         got = artifacts.compare_minsum_point(cfg, rec)
         assert got["ok"], got
 
@@ -977,9 +980,9 @@ def test_bp_decode_kernel_matches_the_ports_oracle(dectype):
     dev = _card()
     code = get_code("802.11n", "1/2", 27)
     llr = _oracle_llrs(code, 32)
-    before = bp_cuda.LAUNCHES
+    before = counters()["k4.launches"]
     res = code.decode(torch.as_tensor(llr, dtype=torch.float32, device=dev), 60, dectype)
-    assert bp_cuda.LAUNCHES - before == 1
+    assert counters()["k4.launches"] - before == 1
     its, dec = res.iterations.cpu().numpy(), (res.app < 0).cpu().numpy()
     for i, row in enumerate(llr):
         app, it = code.decode_ref(row, 60, dectype)
@@ -999,10 +1002,11 @@ def test_ldpc_campaign_cli_resumes_on_the_card(tmp_path):
     lines = (tmp_path / "a" / "ldpc_campaign.jsonl").read_text().splitlines(keepends=True)
     (tmp_path / "b").mkdir()
     (tmp_path / "b" / "ldpc_campaign.jsonl").write_text(lines[0])
-    before = bp_cuda.LAUNCHES
+    before = counters()["k4.launches"]
     assert cli.main(argv + ["--out", str(tmp_path / "b")]) == recs
     # each point's batches and the speculative one the pipelined loop discards
-    assert bp_cuda.LAUNCHES - before == sum(r[5] for r in recs[1:]) // 64 + len(recs[1:])
+    assert (counters()["k4.launches"] - before
+            == sum(r[5] for r in recs[1:]) // 64 + len(recs[1:]))
     for name in ("ldpc_campaign.jsonl", "results.txt", "results.csv"):
         assert (tmp_path / "a" / name).read_text() == (tmp_path / "b" / name).read_text()
 
@@ -1018,9 +1022,10 @@ def _sharded_counts_on_card(dp, sec):
     mesh = make_mesh(dp, sec, device="cuda")
     step, _ = make_sharded_sim_step(SparcParams(**SC_SMALL), DecodeParams(t_max=20), 1.0,
                                     mesh, seed=3)
-    before = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+    before = (counters()["k1.launches"], counters()["k3.launches"])
     out = step([(3, t) for t in range(8)])
-    return out, (wht_cuda.LAUNCHES - before[0], denoiser_cuda.LAUNCHES - before[1])
+    after = counters()
+    return out, (after["k1.launches"] - before[0], after["k3.launches"] - before[1])
 
 
 @pytest.mark.cuda
@@ -1052,9 +1057,10 @@ def test_mesh_of_one_on_the_card():
                                           .reshape(8, -1), sc.M)
         y = design.ab(beta0) + torch.randn(8, design.n, generator=gen, device=dev)
         step, _ = make_sharded_sim_step(sc, dsc, 1.0, mesh, seed=3)
-        before = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+        before = (counters()["k1.launches"], counters()["k3.launches"])
         bs, ts = step.decode(y)
-        assert wht_cuda.LAUNCHES > before[0] and denoiser_cuda.LAUNCHES > before[1]
+        after = counters()
+        assert after["k1.launches"] > before[0] and after["k3.launches"] > before[1]
         bu, tu = sparc.decode_batch(y, design, sc, dsc, 1.0)
         conv = tu < 19
         assert int(conv.sum()) >= 4

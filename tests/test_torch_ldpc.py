@@ -30,6 +30,7 @@ from ldpc_sparc_tpu_torch.models import ldpc as tldpc
 from ldpc_sparc_tpu_torch.models import ldpc_tables as ttables
 from ldpc_sparc_tpu_torch.ops import bp as tbp
 from ldpc_sparc_tpu_torch.ops import bp_cuda
+from ldpc_sparc_tpu_torch.utils.tracing import counters
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -243,10 +244,10 @@ def test_kernel_wrapper_on_cpu_and_its_checks():
     _, tc = _codes("802.11n", "1/2", 27)
     _, llr = _noisy_llrs(tc, 2.0, 4, seed=3)
     ch = torch.as_tensor(llr)
-    before = bp_cuda.LAUNCHES
+    before = counters()["k4.launches"]
     got = bp_cuda.bp_decode_kernel(ch, tc.graph, 30, True, 0.7)
     want = bp_cuda.bp_decode_ref(ch, tc.graph, 30, True, 0.7)
-    assert bp_cuda.LAUNCHES == before
+    assert counters()["k4.launches"] == before
     assert torch.equal(got.app, want.app)
     assert torch.equal(got.iterations, want.iterations)
     with pytest.raises(ValueError):

@@ -40,6 +40,7 @@ from ldpc_sparc_tpu_torch.ops import denoiser_cuda
 from ldpc_sparc_tpu_torch.ops import transforms as ttr
 from ldpc_sparc_tpu_torch.parallel import montecarlo as tmc
 from ldpc_sparc_tpu_torch.parity import design_from_jax_leaves
+from ldpc_sparc_tpu_torch.utils.tracing import counters
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,10 +114,10 @@ def test_fused_tail_matches_jax_kernel_at_long_sections(M):
     tau = rng.uniform(0.5, 2.0, L).astype(np.float32)
     want = denoiser_pallas.fused_denoise_update(
         jnp.asarray(beta), jnp.asarray(azo), jnp.asarray(tau), M, interpret=True)
-    before = denoiser_cuda.LAUNCHES
+    before = counters()["k3.launches"]
     got = denoiser_cuda.fused_denoise_update(
         torch.as_tensor(beta), torch.as_tensor(azo), torch.as_tensor(tau), M)
-    assert denoiser_cuda.LAUNCHES == before
+    assert counters()["k3.launches"] == before
     for g, w, rtol in zip(got, want, (1e-6, 1e-5, 1e-5)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
                                    atol=1e-6 if rtol == 1e-6 else 1e-7)

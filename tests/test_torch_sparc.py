@@ -27,8 +27,9 @@ from ldpc_sparc_tpu.utils import bits as jbits
 from ldpc_sparc_tpu_torch import SparcParams as TParams
 from ldpc_sparc_tpu_torch import DecodeParams as TDecode
 from ldpc_sparc_tpu_torch.models import sparc as tsparc
-from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
+from ldpc_sparc_tpu_torch.ops import denoiser_cuda
 from ldpc_sparc_tpu_torch.parity import design_from_jax_leaves
+from ldpc_sparc_tpu_torch.utils.tracing import counters
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -155,11 +156,11 @@ def test_encode_and_decode_round_trip():
 
 
 def test_cpu_decode_never_launches_a_kernel():
-    before = (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES)
+    before = (counters()["k1.launches"], counters()["k3.launches"])
     _, td, _, y = _problem("eligible")
     tsparc.decode_batch(torch.as_tensor(y)[None], td, TParams(**CODES["eligible"]),
                         TDecode(t_max=T_MAX), AWGN_VAR)
-    assert (wht_cuda.LAUNCHES, denoiser_cuda.LAUNCHES) == before
+    assert (counters()["k1.launches"], counters()["k3.launches"]) == before
 
 
 def test_port_imports_no_jax_and_builds_nothing():

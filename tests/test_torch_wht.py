@@ -15,6 +15,7 @@ from ldpc_sparc_tpu.ops import wht as jwht
 from ldpc_sparc_tpu.ops import wht_pallas
 from ldpc_sparc_tpu_torch.ops import wht as twht
 from ldpc_sparc_tpu_torch.ops import wht_cuda
+from ldpc_sparc_tpu_torch.utils.tracing import counters
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -111,9 +112,9 @@ def test_fwht_signed_shares_signs_across_batch():
 
 
 def test_cpu_tensors_never_launch():
-    before = wht_cuda.LAUNCHES
+    before = counters()["k1.launches"]
     wht_cuda.fwht_signed(torch.ones(2, 16), None, apply_pre=False)
-    assert wht_cuda.LAUNCHES == before
+    assert counters()["k1.launches"] == before
 
 
 @pytest.mark.parametrize("shape,signs_shape", [
@@ -272,11 +273,11 @@ def test_split_ab_matches_jax():
 
 
 def test_cpu_tensors_never_launch_k2():
-    before = (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM)
+    before = (counters()["k1.launches"], counters()["k2.launches"])
     x = torch.ones(4, 1 << 9)
     wht_cuda.fwht_signed_2mm(x, torch.ones(2, 1 << 9), True)
     wht_cuda.fwht_signed_2mm(x, None, False, mm_dtype="float32")
-    assert (wht_cuda.LAUNCHES, wht_cuda.LAUNCHES_2MM) == before
+    assert (counters()["k1.launches"], counters()["k2.launches"]) == before
 
 
 @pytest.mark.parametrize("shape,signs_shape,mm_dtype", [
@@ -288,10 +289,10 @@ def test_cpu_tensors_never_launch_k2():
 ])
 def test_k2_wrapper_rejects_bad_arguments(shape, signs_shape, mm_dtype):
     """The wrapper refuses these on any device, before a launch."""
-    before = wht_cuda.LAUNCHES_2MM
+    before = counters()["k2.launches"]
     with pytest.raises(ValueError):
         wht_cuda.fwht_signed_2mm(torch.zeros(shape), None, True, mm_dtype)
-    assert wht_cuda.LAUNCHES_2MM == before
+    assert counters()["k2.launches"] == before
 
 
 def test_k2_kernel_argument_checks():
@@ -367,12 +368,12 @@ def test_fused_srht_products_equal_the_composition_bit_for_bit(apply_pre, signed
 
 
 def test_cpu_tensors_never_launch_the_fused_products():
-    before = wht_cuda.LAUNCHES
+    before = counters()["k1.launches"]
     idx = torch.tensor([[0, 3, 5]], dtype=torch.int32)
     wht_cuda.srht_scatter_fwht(torch.ones(2, 3), idx, None, 8)
     wht_cuda.srht_fwht_gather(torch.ones(2, 8), torch.ones(1, 8), idx)
     wht_cuda.fwht_signed(torch.ones(2, 1 << 10), None, False, route="two_pass")
-    assert wht_cuda.LAUNCHES == before
+    assert counters()["k1.launches"] == before
 
 
 _IDX = torch.tensor([[0, 3, 5]], dtype=torch.int32)
@@ -393,10 +394,10 @@ _IDX = torch.tensor([[0, 3, 5]], dtype=torch.int32)
     (torch.ones(2, 3), _IDX.to("meta"), None, 8),                 # another device
 ])
 def test_srht_scatter_fwht_rejects_bad_arguments(vals, idx, signs, w):
-    before = wht_cuda.LAUNCHES
+    before = counters()["k1.launches"]
     with pytest.raises(ValueError):
         wht_cuda.srht_scatter_fwht(vals, idx, signs, w)
-    assert wht_cuda.LAUNCHES == before
+    assert counters()["k1.launches"] == before
 
 
 @pytest.mark.parametrize("x,signs,idx", [
@@ -412,10 +413,10 @@ def test_srht_scatter_fwht_rejects_bad_arguments(vals, idx, signs, w):
     (torch.ones(2, 8), None, _IDX.repeat(1, 2)[:, ::2]),          # idx not contiguous
 ])
 def test_srht_fwht_gather_rejects_bad_arguments(x, signs, idx):
-    before = wht_cuda.LAUNCHES
+    before = counters()["k1.launches"]
     with pytest.raises(ValueError):
         wht_cuda.srht_fwht_gather(x, signs, idx)
-    assert wht_cuda.LAUNCHES == before
+    assert counters()["k1.launches"] == before
 
 
 def test_validate_false_skips_only_the_range_check():
