@@ -19,7 +19,9 @@ products), and drives and times the paths `bench.py` times:
     SC configuration (L=2048, M=512, omega=6, Lambda=32, R=1.5, P=15,
     awgn_var 1, t_max 40, 64 codewords; E=192 design blocks of width 2^15)
     through K1+K3, K2+K3 and the plain path (phases 9-10; K2 bit for bit on
-    ternary rows at a width of each of its kernels and layouts), and the
+    ternary rows at a width of each of its kernels and layouts; K1's
+    block-indexed products, which the decode runs, on the design's own
+    column table against their plain versions and timed), and the
     `sparc-sweep` entry point on it through K2, resumed from its store
     (phase 11).
   * slice D: the concatenated LDPC-SPARC point `bench.py` times (802.16
@@ -382,6 +384,71 @@ def time_k1(shape, idx, signs, routes, gen, dev):
     return t
 
 
+def check_block_products(design, batch, gen, dev):
+    """The block-indexed products (`srht_fwht_gather_blocks`,
+    `srht_scatter_fwht_sum`) on `design`'s own column table and shapes, with
+    `batch` codewords: against their plain versions bit for bit on ternary
+    rows and within FWHT_REL_BOUND on Gaussian rows; the summed product
+    twice, the same bits; both timed beside their plain versions. Returns
+    (text, largest Gaussian error, {name: ms}, the kernels line's bound)."""
+    import torch
+    from ldpc_sparc_tpu_torch.ops import wht_cuda
+    E, k = design.idx.shape
+    Lw, w = design.Lc, design.w
+    table = (design._col_ptr, design._col_blocks)
+    if table[0] is None:
+        raise AssertionError("the design has no column table: not a block-indexed design")
+    worst, parts = 0.0, []
+    for kind in ("ternary", "gaussian"):
+        if kind == "ternary":
+            x = torch.randint(-1, 2, (batch, Lw, w), generator=gen, device=dev).float()
+            vals = torch.randint(-1, 2, (batch, E, k), generator=gen, device=dev).float()
+        else:
+            x = torch.randn(batch, Lw, w, generator=gen, device=dev)
+            vals = torch.randn(batch, E, k, generator=gen, device=dev)
+        for name, got, want in (
+                ("gather_blocks",
+                 lambda: wht_cuda.srht_fwht_gather_blocks(x, design.signs,
+                                                          design._idx32, *table),
+                 lambda: wht_cuda.srht_fwht_gather_blocks_ref(x, design.signs,
+                                                              design._idx32, *table)),
+                ("scatter_sum",
+                 lambda: wht_cuda.srht_scatter_fwht_sum(vals, design._idx32,
+                                                        design.signs, w, *table),
+                 lambda: wht_cuda.srht_scatter_fwht_sum_ref(vals, design._idx32,
+                                                            design.signs, w, *table))):
+            g, r = got(), want()
+            torch.cuda.synchronize()
+            err, lim = fwht_err(g, r)
+            if kind == "ternary" and not torch.equal(g, r):
+                raise AssertionError(f"{name} at the SC design's table is not "
+                                     f"bit-equal to its plain version on ternary rows")
+            if not err <= lim:
+                raise AssertionError(f"{name} at the SC design's table: {err} > {lim}")
+            if name == "scatter_sum" and not torch.equal(g, got()):
+                raise AssertionError("scatter_sum: two calls differ in their bits")
+            if kind == "gaussian":
+                worst = max(worst, err)
+                parts.append(f"{name} {err:.2e}")
+            del g, r
+    t = {"gather_blocks": cuda_ms(lambda: wht_cuda.srht_fwht_gather_blocks(
+             x, design.signs, design._idx32, *table, validate=False)),
+         "scatter_sum": cuda_ms(lambda: wht_cuda.srht_scatter_fwht_sum(
+             vals, design._idx32, design.signs, w, *table, validate=False)),
+         "gather_blocks plain": cuda_ms(lambda: wht_cuda.srht_fwht_gather_blocks_ref(
+             x, design.signs, design._idx32, *table), reps=2, warmup=1),
+         "scatter_sum plain": cuda_ms(lambda: wht_cuda.srht_scatter_fwht_sum_ref(
+             vals, design._idx32, design.signs, w, *table), reps=2, warmup=1)}
+    # each product reads or writes the (batch, Lw, w) window side once, the
+    # (batch, E, k) index side once, the (E, w) signs and the (E, k) int32
+    # indices; w log2(w) adds a block row
+    bound = least_ms(4 * (batch * Lw * w + batch * E * k + E * (w + k)),
+                     batch * E * w * (w.bit_length() - 1))
+    return (f"({batch}, {Lw} column blocks of 2^{w.bit_length() - 1}, idx ({E}, {k})) "
+            f"ternary bit-equal, Gaussian " + " ".join(parts)
+            + ", the sum's bits repeat"), worst, t, bound
+
+
 def bp_inputs(code, snr_db, batch, seed, dev):
     """(codewords, LLRs) of `batch` random codewords, BPSK over AWGN at
     sigma^2 = 10^(-snr_db/10), made on the CPU from `seed` (so a CPU run
@@ -617,15 +684,17 @@ def sc_inputs(design, params, batch, dev, awgn_var=SC_AWGN):
 
 
 def slice_c(dev, card, errs):
-    """Phases 9-11; returns K2's entry of the kernels line. K1 and K3 are
-    also checked against their plain versions at the SC decode's shapes,
-    and their errors there join `errs`."""
+    """Phases 9-11; returns K2's entry of the kernels line and that of K1's
+    block-indexed products (the SC decode's K1). K1 and K3 are also checked
+    against their plain versions at the SC decode's shapes, and their errors
+    there join `errs`."""
     import os
     import tempfile
     import torch
     from ldpc_sparc_tpu_torch import DecodeParams, SparcDesign, SparcParams, sparc_se
     from ldpc_sparc_tpu_torch.models.sparc import decode_batch
     from ldpc_sparc_tpu_torch.ops import denoiser_cuda, wht_cuda
+    from ldpc_sparc_tpu_torch.utils import tracing
 
     params = SparcParams(**SC)
     design = SparcDesign.for_params(params, SC_AWGN, seed=SEED, device=dev)
@@ -709,6 +778,8 @@ def slice_c(dev, card, errs):
         raise AssertionError(f"the SC design's index side is {sc_shape}")
     k1_t = time_k1(SC_SRHT, design._idx32, design.signs, ("block", "two_pass"),
                    gen, dev)
+    blocks_text, blocks_err, blocks_t, blocks_bound = check_block_products(
+        design, SC_BATCH, gen, dev)
     # the library's yardstick for K2: the pair of cuBLAS bf16 products
     # ha @ (x @ hb) on the (a, b) view, operands already in bf16
     lib_ms = {}
@@ -732,8 +803,14 @@ def slice_c(dev, card, errs):
              f"plain (relative Frobenius <= {K2_REL_BOUND:g}) and against float32 K1 "
              f"(max|d|/mean|K1| <= {K2_F32_BOUND:g}); K1 against its plain version "
              f"(max|d| <= {FWHT_REL_BOUND:g} max|ref|): " + "; ".join(parts)
-             + f" | K1 at {SC_SRHT} by route and its fused products, ms: "
+             + f" | K1 at {SC_SRHT} by route and its fused products on a selected "
+             f"copy (the SC decode's before the block-indexed route), ms: "
              + ", ".join(f"{k} {v:.4f}" for k, v in k1_t.items())
+             + f" | K1's block-indexed products, the SC decode's, vs plain "
+             f"(max|d| <= {FWHT_REL_BOUND:g} max|ref|): {blocks_text}; ms: "
+             + ", ".join(f"{k} {v:.4f}" for k, v in blocks_t.items())
+             + f" (bound {blocks_bound['bound_ms']:.4f} ms by "
+             f"{blocks_bound['bound_by']})"
              + " | K2 " + "; ".join(f"{k}: {v}" for k, v in unsigned.items())
              + f" | K2's bound at the SC shape {k2_bound['bound_ms']:.4f} ms by "
              f"{k2_bound['bound_by']}, at the headline's {head_bound['bound_ms']:.4f} "
@@ -771,15 +848,17 @@ def slice_c(dev, card, errs):
     out, counts = {}, {}
     for name, kw in paths.items():
         zero_launches("k1", "k2", "k3")
+        tracing.reset("k1.block_products")
         out[name] = decode_batch(y, design, params, decode, SC_AWGN, **kw)
         torch.cuda.synchronize()
-        counts[name] = (n_launched("k1"), n_launched("k2"), n_launched("k3"))
+        counts[name] = (n_launched("k1"), n_launched("k2"), n_launched("k3"),
+                        tracing.counters()["k1.block_products"])
     it = SC_T_MAX - 1
-    want_counts = {"K1+K3": (2 * it - 1, 0, it), "K2+K3": (0, 2 * it - 1, it),
-                   "plain": (0, 0, 0)}
+    want_counts = {"K1+K3": (2 * it - 1, 0, it, 2 * it - 1),
+                   "K2+K3": (0, 2 * it - 1, it, 0), "plain": (0, 0, 0, 0)}
     if counts != want_counts:
-        raise AssertionError(f"SC decode launches (K1, K2, K3) {counts}, "
-                             f"expected {want_counts}")
+        raise AssertionError(f"SC decode launches (K1, K2, K3, K1's block-indexed "
+                             f"products) {counts}, expected {want_counts}")
     sec_errs = {}
     for name, (beta, t_final) in out.items():
         if beta.shape != beta0.shape or not bool(torch.isfinite(beta).all()):
@@ -817,7 +896,8 @@ def slice_c(dev, card, errs):
               f"{card}: fused_denoise_update vs plain at {shape}: "
               + ", ".join(k3_parts) + f" ({k3_ms[0]:.4f} ms, plain {k3_ms[1]:.4f} "
               f"ms) | section errors {sec_errs} | t_final {tf} | launches "
-              f"(K1, K2, K3) {counts} | K1+K3 decisions equal to plain, t_final "
+              f"(K1, K2, K3, K1's block-indexed products) {counts} | K1+K3 "
+              f"decisions equal to plain, t_final "
               f"within 1 | sc_amp_iterations_per_s "
               + ", ".join(f"{k} {v:.1f} (best window {best[k]:.4f} s)"
                           for k, v in rate.items()))
@@ -864,13 +944,23 @@ def slice_c(dev, card, errs):
                           f"FER {r['fer']:.3f} avg iters {r['avg_iters']:.2f}, SE "
                           f"final psi {p:.3e}" for r, p in zip(rows, se)))
 
-    return {"name": "fwht_signed_2mm", "route": "cuda",
-            "source": "ldpc_sparc_tpu_torch/csrc/fwht_2mm.cu",
-            "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:103",
-            "launches": counts["K2+K3"][1], "max_abs_err": k2_err,
-            "ms": (times["SC", True][0] + times["SC", False][0]) / 2,
-            "plain_ms": (times["SC", True][1] + times["SC", False][1]) / 2,
-            **k2_bound, "library_ms": lib_ms["SC"]}
+    return ({"name": "fwht_signed_2mm", "route": "cuda",
+             "source": "ldpc_sparc_tpu_torch/csrc/fwht_2mm.cu",
+             "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:103",
+             "launches": counts["K2+K3"][1], "max_abs_err": k2_err,
+             "ms": (times["SC", True][0] + times["SC", False][0]) / 2,
+             "plain_ms": (times["SC", True][1] + times["SC", False][1]) / 2,
+             **k2_bound, "library_ms": lib_ms["SC"]},
+            # K1 as the SC decode launches it: the two block-indexed products
+            # (fwht_blocks_kernel), averaged
+            {"name": "fwht_signed (SC decode, block-indexed)", "route": "cuda",
+             "source": "ldpc_sparc_tpu_torch/csrc/fwht_signed.cu",
+             "replaces": "ldpc_sparc_tpu/ops/wht_pallas.py:138",
+             "launches": counts["K1+K3"][3], "max_abs_err": blocks_err,
+             "ms": (blocks_t["gather_blocks"] + blocks_t["scatter_sum"]) / 2,
+             "plain_ms": (blocks_t["gather_blocks plain"]
+                          + blocks_t["scatter_sum plain"]) / 2,
+             **blocks_bound, "library_ms": None})
 
 
 def concat_problem():
@@ -2416,7 +2506,7 @@ def main():
              f"{4e3 * gb / k3[0]:.0f} GB/s | device copy {copy_gbs:.0f} GB/s")
 
     k4, lxor_us = slice_b(dev, card)
-    k2 = slice_c(dev, card, errs)
+    k2, k1_sc = slice_c(dev, card, errs)
     k1_d, k4_d = slice_d(dev, card, lxor_us)
     slice_e_kernels = slice_e(dev, card)
     sweeps_and_campaign(dev, card)
@@ -2449,7 +2539,7 @@ def main():
          **least_ms(4 * (4 * BATCH * L * M + 2 * BATCH * L), 8 * BATCH * L * M),
          "library_ms": None},
     ]
-    kernels.insert(1, k2)
+    kernels[1:1] = [k1_sc, k2]
     kernels += [k4, k1_d, k4_d, *slice_e_kernels, *slice_g_kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,6 +108,11 @@ def load() -> ctypes.CDLL:
             lib.ldpc_srht_fwht_gather.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
                                                   i32, i32, i32, i32, ptr]
             lib.ldpc_srht_fwht_gather.restype = i32
+            for fn in (lib.ldpc_srht_fwht_gather_blocks,
+                       lib.ldpc_srht_scatter_fwht_sum):
+                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr,
+                               ptr, ptr]
+                fn.restype = i32
             lib.ldpc_fwht_active_clusters.argtypes = [i32]
             lib.ldpc_fwht_active_clusters.restype = i32
             lib.ldpc_fwht_2mm.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32,

@@ -57,11 +57,26 @@
 // only the k outputs at idx[r % E]. Each block of a cluster takes the
 // indices that fall in its own segment.
 //
+// A design of E blocks whose window side is Lw < E blocks (a spatially
+// coupled design, window w <= 2^15, its window side the columns) also has
+// that side folded in, by a segment table: window block s holds the design's
+// blocks blocks[ptr[s]] .. blocks[ptr[s + 1] - 1], ascending
+// (fwht_blocks_kernel, each row in fwht_onchip_kernel's steps, onchip_row).
+// Gather mode reads its row straight from window block s of the (B, Lw, w)
+// input, by index, in place of a (B, E, w) copy selected beforehand; the omega
+// rows that read one window block run next to each other, so it crosses
+// device memory once. Scatter mode sums in place of a (B, E, w) array of
+// parts and an atomic segment sum: one block owns output row (b, s), walks
+// s's blocks in ascending order, stores the first transform and adds each
+// later one to what it stored (in L2: 132 rows of 128 KB are in flight), so
+// the sum runs in block order and two runs give the same bits.
+//
 // Rows are taken in the order that keeps the rows of one sign row next to
 // each other: an (E, w) sign plane larger than L2 is then read from device
-// memory once, not once a row. Where a row streams in behind its own
-// copies, a thread keeps its signs as bits, asked for ahead of the copies
-// (SignBits).
+// memory once, not once a row (the block-indexed kernel keeps the sign rows
+// of one window block together across the codewords instead). Where a row
+// streams in behind its own copies, a thread keeps its signs as bits, asked
+// for ahead of the copies (SignBits).
 //
 // Inside a tile the stages run in groups: a work item holds the elements of
 // one butterfly in registers, 32 of them (five stages) from 2^13 up, where
@@ -149,11 +164,13 @@ __device__ __forceinline__ void butterflies(float* v) {
 // tile, times the pre-sign sg[i * ld + c] when pre, and go to device memory
 // (times the post-sign when post) or back to the tile. Items are taken in
 // chunks of at most 16 values per thread: all of a chunk's loads are issued
-// first.
-template <int G, int H, int N, int C, int T, bool FROM_GLOBAL, bool TO_GLOBAL>
+// first. ACC with add: each store to device memory adds what out holds there,
+// which this thread stored itself (the item map is the same on every call).
+template <int G, int H, int N, int C, int T, bool FROM_GLOBAL, bool TO_GLOBAL,
+          bool ACC = false>
 __device__ __forceinline__ void group(float* tile, const float* in, float* out,
                                       const float* sg, long long ld, bool pre,
-                                      bool post) {
+                                      bool post, bool add = false) {
   constexpr int R = 1 << G;
   constexpr int ITEMS = (N >> G) * C;
   constexpr int PER = (ITEMS + T - 1) / T;
@@ -225,6 +242,9 @@ __device__ __forceinline__ void group(float* tile, const float* in, float* out,
             const long long at = i * ld + col[k];
             float x = v[k][j];
             if (post) x *= sg[at];
+            if constexpr (ACC) {
+              if (add) x += out[at];
+            }
             out[at] = x;
           } else {
             tile[slot<C>(i, col[k])] = v[k][j];
@@ -350,17 +370,19 @@ __device__ __forceinline__ void cluster_wait() {
 
 // All LOG_N <= 12 stages of a one-row tile that already sits in shared
 // memory: pre-signs in the first group, and the last group to device
-// memory (with the post-signs) when TO_GLOBAL, else back to the tile.
-template <int LOG_N, int T, bool TO_GLOBAL>
+// memory (with the post-signs, and added to what it holds when ACC and add)
+// when TO_GLOBAL, else back to the tile.
+template <int LOG_N, int T, bool TO_GLOBAL, bool ACC = false>
 __device__ __forceinline__ void tile_transform(float* tile, float* out,
                                                const float* sg, bool pre,
-                                               bool post) {
+                                               bool post, bool add = false) {
   constexpr int N = 1 << LOG_N;
   constexpr int NG = (LOG_N + 2) / 3;
   static_assert(NG >= 1 && NG <= 4, "1 to 12 stages");
   constexpr int G0 = LOG_N - 3 * (NG - 1);
   if constexpr (NG == 1) {
-    group<G0, 1, N, 1, T, false, TO_GLOBAL>(tile, nullptr, out, sg, 1, pre, post);
+    group<G0, 1, N, 1, T, false, TO_GLOBAL, ACC>(tile, nullptr, out, sg, 1, pre,
+                                                 post, add);
   } else {
     group<G0, 1, N, 1, T, false, false>(tile, nullptr, out, sg, 1, pre, false);
     if constexpr (NG >= 3) {
@@ -371,8 +393,8 @@ __device__ __forceinline__ void tile_transform(float* tile, float* out,
       group<3, (1 << (G0 + 3)), N, 1, T, false, false>(tile, nullptr, out, sg, 1,
                                                        false, false);
     }
-    group<3, (1 << (LOG_N - 3)), N, 1, T, false, TO_GLOBAL>(tile, nullptr, out,
-                                                            sg, 1, false, post);
+    group<3, (1 << (LOG_N - 3)), N, 1, T, false, TO_GLOBAL, ACC>(
+        tile, nullptr, out, sg, 1, false, post, add);
   }
 }
 
@@ -431,10 +453,13 @@ __device__ __forceinline__ SignBits top_group_signs(const float* sgl) {
 
 // The last LOG_S - 10 stages of a one-row tile (strides 2^10 and up): work
 // item g holds elements g + j 2^10. To device memory with the post-signs
-// (see top_group_signs), or back to the tile.
-template <int G, int S, int T, bool TO_GLOBAL>
+// (see top_group_signs), or back to the tile. ACC with add: each result is
+// added to what out holds, which this thread stored there itself (the item
+// map is the same on every call).
+template <int G, int S, int T, bool TO_GLOBAL, bool ACC = false>
 __device__ __forceinline__ void top_group(float* tile, float* out,
-                                          const SignBits& sbits, bool post) {
+                                          const SignBits& sbits, bool post,
+                                          bool add = false) {
   constexpr int R = 1 << G;
   constexpr int H = 1 << kLowLog;
   constexpr int PER = (S >> G) / T;
@@ -460,7 +485,11 @@ __device__ __forceinline__ void top_group(float* tile, float* out,
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         if constexpr (TO_GLOBAL) {
-          out[g + j * H] = post ? flip(v[k][j], turn, k * R + j) : v[k][j];
+          float r = post ? flip(v[k][j], turn, k * R + j) : v[k][j];
+          if constexpr (ACC) {
+            if (add) r += out[g + j * H];
+          }
+          out[g + j * H] = r;
         } else {
           tile[slot<1>(g + j * H, 0)] = v[k][j];
         }
@@ -574,44 +603,44 @@ __device__ __forceinline__ SignBits top_stage_signs(const float* sg, int c) {
   return bits;
 }
 
-// One row per block (CLUSTER false, w = 2^LOG_S), in all three modes:
-//   kPlain  : x (R, w) -> y (R, w)
-//   kScatter: x (R, k) values placed at idx[r % E] of a zero row -> y (R, w)
-//   kGather : x (R, w) -> y (R, k), the transform's entries at idx[r % E]
-// or, in scatter mode, one row per cluster of 2^log_c blocks (CLUSTER true,
-// LOG_S = 15, w = 2^(15 + log_c)): block c of a cluster owns elements
-// [c 2^15, (c + 1) 2^15) of the row, runs the local stages on what was
-// scattered there and the top stages on the way out (top_stages). Rows
-// that come from device memory take fwht_cluster_rows_kernel in a cluster.
-template <int LOG_S, int MODE, bool CLUSTER>
-__global__ void __launch_bounds__(seg_threads<LOG_S>())
-fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
-                   float* __restrict__ y, const int* __restrict__ idx, int k,
-                   int E, int nb, int pre, int post, int log_c) {
-  extern __shared__ __align__(16) float dyn_tile[];
-  float* tile = dyn_tile;
+// One row of a launch on one block, or one 2^15 segment of a row in a
+// cluster (CLUSTER, scatter mode only), in all three modes, with sign and
+// index row e = re % E (fwht_onchip_kernel passes its row r; the modulo is
+// taken only where signs or indices are given), or e = re for a row of
+// fwht_blocks_kernel (BLOCKS), which knows its block:
+//   kPlain  : the row's w inputs at x row rx -> its w outputs at y row ry
+//   kScatter: the row's k values at x row rx, placed at idx[e] of a zero row
+//             -> its w outputs at y row ry
+//   kGather : the row's w inputs at x row rx -> its transform's entries at
+//             idx[e], to y row ry (k floats)
+// In a cluster of 2^log_c blocks, block c owns elements [c 2^15, (c + 1)
+// 2^15) of the row (w = 2^(15 + log_c)), runs the local stages on what was
+// scattered there and the top stages on the way out (top_stages). BLOCKS in
+// scatter mode, with add: the w outputs are added to what y row ry holds,
+// which this block stored there itself (fwht_blocks_kernel's sum).
+template <int LOG_S, int MODE, bool CLUSTER, bool BLOCKS = false>
+__device__ __forceinline__ void onchip_row(float* tile, const float* x,
+                                           const float* signs, float* y,
+                                           const int* idx, int k, long long rx,
+                                           long long ry, long long re, int E,
+                                           int c, int pre, int post, int log_c,
+                                           bool add = false) {
   constexpr int S = 1 << LOG_S;
   constexpr int T = seg_threads<LOG_S>();
   static_assert(!CLUSTER || MODE == kScatter, "a cluster here only scatters");
+  static_assert(!BLOCKS || (MODE != kPlain && !CLUSTER), "a block-indexed product");
   constexpr bool TO_GLOBAL = MODE != kGather && !CLUSTER;
+  constexpr bool ACC = BLOCKS && TO_GLOBAL;   // the in-order sum
   constexpr bool CHUNKED = LOG_S > kSmallMaxLog;
   constexpr int LOG_Q = LOG_S > kChunkLog ? kChunkLog : LOG_S;   // chunk
   constexpr int NQ = S >> LOG_Q;
   constexpr int IA = (1 << LOG_Q) / 32;   // radix-32 items of a chunk
-  int c = 0;
-  unsigned u = blockIdx.x;   // which row of the launch order
-  if constexpr (CLUSTER) {
-    c = static_cast<int>(blockIdx.x & ((1u << log_c) - 1u));
-    u = blockIdx.x >> log_c;
-  }
-  // launch order: the nb rows that share sign (and index) row e run next to
-  // each other, so that row is read from device memory once and then from L2
-  const long long r = static_cast<long long>(u % nb) * E + u / nb;
   const long long w = static_cast<long long>(S) << (CLUSTER ? log_c : 0);
   const long long seg0 = static_cast<long long>(c) << LOG_S;
-  const float* sg = signs ? signs + (r % E) * w : nullptr;   // this row's signs
-  const float* sgl = sg ? sg + seg0 : nullptr;               // this segment's
-  const int* ix = idx ? idx + (r % E) * static_cast<long long>(k) : nullptr;
+  const float* sg = signs ? signs + (BLOCKS ? re : re % E) * w : nullptr;   // the row's
+  const float* sgl = sg ? sg + seg0 : nullptr;   // the segment's signs
+  const int* ix = idx ? idx + (BLOCKS ? re : re % E) * static_cast<long long>(k)
+                      : nullptr;
   const bool pre_l = pre && MODE != kScatter;
   const bool post_l = post && TO_GLOBAL;
   SignBits sbits;
@@ -640,7 +669,7 @@ fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
       for (int v = threadIdx.x; v < TF; v += T) tile[v] = 0.f;
     }
     __syncthreads();
-    const float* vals = x + r * static_cast<long long>(k);
+    const float* vals = x + rx * static_cast<long long>(k);
     for (int j = threadIdx.x; j < k; j += T) {
       const long long at = ix[j];
       const unsigned long long p = static_cast<unsigned long long>(at - seg0);
@@ -651,7 +680,7 @@ fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
       }
     }
   } else {
-    const float* src = x + r * w + seg0;
+    const float* src = x + rx * w + seg0;
     // the pre-signs are asked for first and packed once the copies are out
     // A warp's 32 items of a chunk are 2^10 contiguous floats, item l the
     // 32 from 32 l on. Lane l reads sign 32 i + l for i < 32, one 128-byte
@@ -694,13 +723,16 @@ fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
   }
 
   // 2. the LOG_S stages local to the segment
-  float* outp = TO_GLOBAL ? y + r * w + seg0 : nullptr;
+  float* outp = TO_GLOBAL ? y + ry * w + seg0 : nullptr;
   if constexpr (LOG_S == 0) {
     __syncthreads();
     if (threadIdx.x == 0) {
       float v = tile[0];
       if (pre_l || post_l) v *= sgl[0];
       if constexpr (TO_GLOBAL) {
+        if constexpr (ACC) {
+          if (add) v += outp[0];
+        }
         outp[0] = v;
       } else {
         tile[0] = v;
@@ -710,20 +742,21 @@ fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
   } else if constexpr (!CHUNKED) {
     if constexpr (MODE != kScatter && S >= 4) cp_async_wait(0);
     __syncthreads();
-    tile_transform<LOG_S, T, TO_GLOBAL>(tile, outp, sgl, pre_l, post_l);
+    tile_transform<LOG_S, T, TO_GLOBAL, ACC>(tile, outp, sgl, pre_l, post_l, add);
   } else {
     chunk_stages<LOG_S, T, MODE != kScatter>(tile, sbits, pre_l);
     if constexpr (MODE == kPlain && !CLUSTER) {
       if (post_l) sbits = top_group_signs<LOG_S, T>(sgl);
     }
-    top_group<LOG_S - kLowLog, S, T, TO_GLOBAL>(tile, outp, sbits, post_l);
+    top_group<LOG_S - kLowLog, S, T, TO_GLOBAL, ACC>(tile, outp, sbits, post_l,
+                                                     add);
   }
 
   // 3. in a cluster: the top stages on the way out
   if constexpr (CLUSTER) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();   // every segment is finished before any remote read
-    float* yrow = y + r * w;
+    float* yrow = y + ry * w;
     switch (log_c) {
       case 1: top_stages<1>(cluster, tile, c, yrow, sbits, post); break;
       case 2: top_stages<2>(cluster, tile, c, yrow, sbits, post); break;
@@ -738,7 +771,7 @@ fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
 
   // 4. gather mode: only the indexed outputs leave the chip
   if constexpr (MODE == kGather) {
-    float* outk = y + r * static_cast<long long>(k);
+    float* outk = y + ry * static_cast<long long>(k);
     for (int j = threadIdx.x; j < k; j += T) {
       const long long at = ix[j];
       const unsigned long long p = static_cast<unsigned long long>(at - seg0);
@@ -747,6 +780,95 @@ fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
         if (post) v *= sg[at];
         outk[j] = v;
       }
+    }
+  }
+}
+
+// One row per block (CLUSTER false, w = 2^LOG_S), in all three modes (x, y
+// (R, w), or (R, k) on the index side; row r takes sign and index row r % E),
+// or, in scatter mode, one row per cluster of 2^log_c blocks (CLUSTER true,
+// LOG_S = 15, w = 2^(15 + log_c)): see onchip_row. Rows that come from
+// device memory take fwht_cluster_rows_kernel in a cluster.
+template <int LOG_S, int MODE, bool CLUSTER>
+__global__ void __launch_bounds__(seg_threads<LOG_S>())
+fwht_onchip_kernel(const float* __restrict__ x, const float* __restrict__ signs,
+                   float* __restrict__ y, const int* __restrict__ idx, int k,
+                   int E, int nb, int pre, int post, int log_c) {
+  extern __shared__ __align__(16) float dyn_tile[];
+  int c = 0;
+  unsigned u = blockIdx.x;   // which row of the launch order
+  if constexpr (CLUSTER) {
+    c = static_cast<int>(blockIdx.x & ((1u << log_c) - 1u));
+    u = blockIdx.x >> log_c;
+  }
+  // launch order: the nb rows that share sign (and index) row e run next to
+  // each other, so that row is read from device memory once and then from L2
+  const long long r = static_cast<long long>(u % nb) * E + u / nb;
+  onchip_row<LOG_S, MODE, CLUSTER>(dyn_tile, x, signs, y, idx, k, r, r, r, E, c,
+                                   pre, post, log_c);
+}
+
+// The block-indexed products of a design of E blocks whose window side, of
+// width w = 2^LOG_S, is Lw blocks: window block s holds the design's blocks
+// blocks[ptr[s]] .. blocks[ptr[s + 1] - 1], in ascending order (a segment
+// table). The window side is addressed by block index, so no (B, E, w) copy
+// of it exists in device memory. Each row runs onchip_row's steps.
+//   kGather : x (B, Lw, w) -> y (B, E, k). Launch row u is (window block s,
+//             codeword b, the j-th block e of s), in that order of nesting:
+//             the omega blocks that read x[b, s] run next to each other (it is
+//             read from device memory once, then from L2), and so do the
+//             sign rows of s's blocks across b. Row (b, e) of y is the
+//             gather at idx[e] of the transform of x[b, s] with signs[e].
+//   kScatter: x (B, E, k) -> y (B, Lw, w). Block u owns row (b, s) of y,
+//             u = s B + b, and walks the blocks e of s in ascending order:
+//             it scatters x[b, e] at idx[e], transforms, applies signs[e]
+//             and stores the first block's result, then adds each later
+//             one to what it stored, so that the sum is
+//             ((p0 + p1) + p2) + ... on every run: no float atomics, no
+//             zero fill. A window block with no blocks is stored as zeros.
+template <int LOG_S, int MODE>
+__global__ void __launch_bounds__(seg_threads<LOG_S>())
+fwht_blocks_kernel(const float* __restrict__ x, const float* __restrict__ signs,
+                   float* __restrict__ y, const int* __restrict__ idx, int k,
+                   int E, int B, int Lw, const int* __restrict__ ptr,
+                   const int* __restrict__ blocks) {
+  extern __shared__ __align__(16) float dyn_tile[];
+  const int pre = MODE == kGather && signs != nullptr;
+  const int post = MODE == kScatter && signs != nullptr;
+  const long long u = blockIdx.x;
+  if constexpr (MODE == kGather) {
+    int s = 0, hi = Lw;   // the last s with B ptr[s] <= u
+    while (hi - s > 1) {
+      const int mid = (s + hi) >> 1;
+      if (static_cast<long long>(ptr[mid]) * B <= u) {
+        s = mid;
+      } else {
+        hi = mid;
+      }
+    }
+    const int n = ptr[s + 1] - ptr[s];
+    const long long at = u - static_cast<long long>(ptr[s]) * B;
+    const long long b = at / n;
+    const long long e = blocks[ptr[s] + static_cast<int>(at % n)];
+    onchip_row<LOG_S, kGather, false, true>(dyn_tile, x, signs, y, idx, k,
+                                            b * Lw + s, b * E + e, e, E, 0, pre,
+                                            post, 0);
+  } else {
+    const int s = static_cast<int>(u / B);
+    const long long b = u % B;
+    const long long ry = b * Lw + s;
+    const int j0 = ptr[s], j1 = ptr[s + 1];
+    if (j0 == j1) {
+      float* out = y + (ry << LOG_S);
+      for (long long i = threadIdx.x; i < (1LL << LOG_S); i += blockDim.x) out[i] = 0.f;
+      return;
+    }
+    for (int j = j0; j < j1; ++j) {
+      const long long e = blocks[j];
+      if (j > j0) __syncthreads();   // the last block's transform left the tile
+      onchip_row<LOG_S, kScatter, false, true>(dyn_tile, x, signs, y, idx, k,
+                                               b * E + e, ry, e, E, 0, pre, post,
+                                               0, j > j0);
     }
   }
 }
@@ -1090,6 +1212,50 @@ cudaError_t run_onchip(int route, long long rows, int log_w, const float* x,
   }
 }
 
+template <int LOG_S, int MODE>
+cudaError_t launch_blocks(long long grid, const float* x, const float* signs,
+                          float* y, const int* idx, int k, int E, int B, int Lw,
+                          const int* ptr, const int* blocks, cudaStream_t st) {
+  auto kernel = fwht_blocks_kernel<LOG_S, MODE>;
+  constexpr int smem =
+      static_cast<int>(sizeof(float)) * tile_floats<(1 << LOG_S), 1>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(grid), seg_threads<LOG_S>(), smem, st>>>(
+      x, signs, y, idx, k, E, B, Lw, ptr, blocks);
+  return cudaGetLastError();
+}
+
+// The block-indexed products (fwht_blocks_kernel), one launch: B E blocks
+// in gather mode, B Lw in scatter mode; the block route's widths only.
+template <int MODE>
+cudaError_t run_blocks(long long B, int log_w, const float* x,
+                       const float* signs, float* y, const int* idx, int k,
+                       int E, int Lw, const int* ptr, const int* blocks,
+                       cudaStream_t st) {
+  const long long grid = B * (MODE == kGather ? E : Lw);
+  if (B <= 0 || E <= 0 || Lw <= 0 || k < 0 || idx == nullptr ||
+      ptr == nullptr || blocks == nullptr || grid > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  switch (log_w) {
+#define LDPC_BLOCKS(L)                                                       \
+  case L:                                                                    \
+    return launch_blocks<L, MODE>(grid, x, signs, y, idx, k, E,              \
+                                  static_cast<int>(B), Lw, ptr, blocks, st);
+    LDPC_BLOCKS(0) LDPC_BLOCKS(1) LDPC_BLOCKS(2) LDPC_BLOCKS(3) LDPC_BLOCKS(4)
+    LDPC_BLOCKS(5) LDPC_BLOCKS(6) LDPC_BLOCKS(7) LDPC_BLOCKS(8) LDPC_BLOCKS(9)
+    LDPC_BLOCKS(10) LDPC_BLOCKS(11) LDPC_BLOCKS(12) LDPC_BLOCKS(13)
+    LDPC_BLOCKS(14) LDPC_BLOCKS(15)
+#undef LDPC_BLOCKS
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t run_two_pass(long long rows, int log_w, const float* x,
                          const float* signs, float* y, int E, int pre, int post,
                          cudaStream_t st) {
@@ -1170,6 +1336,36 @@ extern "C" int ldpc_srht_fwht_gather(const float* x, const float* signs,
   return static_cast<int>(run_onchip<kGather>(
       route, rows, log_w, x, signs, out, idx, k, E, pre, post,
       static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// The forward SRHT product with the window side's select folded in:
+// out[b, e, :] (B, E, k) is the gather at idx[e] of FWHT(x[b, s, :] * s_e)
+// (x is (B, Lw, 2^log_w), s_e = signs[e] or none), for each block e of
+// segment s of the table (ptr (Lw + 1), blocks (E), int32). log_w <= 15.
+extern "C" int ldpc_srht_fwht_gather_blocks(const float* x, const float* signs,
+                                            const int* idx, float* out,
+                                            long long B, int k, int log_w,
+                                            int E, int Lw, const int* ptr,
+                                            const int* blocks, void* stream) {
+  cudaGetLastError();
+  return static_cast<int>(run_blocks<kGather>(
+      B, log_w, x, signs, out, idx, k, E, Lw, ptr, blocks,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The adjoint SRHT product with the window side's sum folded in: y[b, s, :]
+// (B, Lw, 2^log_w) is the sum, over the blocks e of segment s in the table's
+// ascending order, of FWHT(the zero row that holds vals[b, e, j] at
+// idx[e, j]) * s_e; summed in that order on every run. log_w <= 15.
+extern "C" int ldpc_srht_scatter_fwht_sum(const float* vals, const int* idx,
+                                          const float* signs, float* y,
+                                          long long B, int k, int log_w, int E,
+                                          int Lw, const int* ptr,
+                                          const int* blocks, void* stream) {
+  cudaGetLastError();
+  return static_cast<int>(run_blocks<kScatter>(
+      B, log_w, vals, signs, y, idx, k, E, Lw, ptr, blocks,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // How many clusters of the cluster route's kernel the card holds at once

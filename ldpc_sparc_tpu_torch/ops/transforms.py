@@ -21,6 +21,25 @@ plain versions (zero fill, `scatter_`, the Kronecker chain of
 `ops/wht.py`, `gather`). `fwht_kernel=False` takes the plain versions on
 any device; they are the reference the kernel path is measured against.
 
+Block-indexed route in `SparcDesign.ab` / `.az`: a design of several
+blocks selects each block's input from its column block and sums the
+blocks' outputs by row block, and the other way round. On the window side
+(the columns of a design that is not tall) both fold into K1 through the
+design's column segment table (`segment_table`): `ab` reads each block's
+rows from its column block by index (`srht_fwht_gather_blocks`), and `az`
+adds each column block's blocks in ascending block order as it stores
+(`srht_scatter_fwht_sum`), so no (B, E, w) tensor is made and no float
+atomic adds. The route is taken where `window_block_route` says so, by
+what the design and the values show: real values on a CUDA device,
+`fwht_mode="ms"` with the kernel on, a full offset-0 window of at most
+2^15 (K1's block route), a design that is not tall, and columns that are
+not the identity. Everything else keeps the select, the per-block
+`srht_apply` and the `index_add_` segment sum: one-block designs and
+`DesignStack`, tall (power-allocated) designs, windows of 2^16 and up,
+offset-1 windows, complex values, K2's modes, the CPU. The row side's
+select and sum (small: k values a block) stay `index_select` and
+`index_add_` on both routes.
+
 `fwht_mode` picks the transform, as the JAX package's `set_fwht_backend`
 mode and dtype do: "ms" (the default) is K1, float32 throughout; "2mm" is
 K2 (`ops/wht_cuda.fwht_signed_2mm`), the two-sided H_a . X . H_b form with
@@ -65,9 +84,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .wht_cuda import (fwht_signed, fwht_signed_2mm, fwht_signed_2mm_ref,
-                       fwht_signed_ref, srht_fwht_gather, srht_fwht_gather_ref,
-                       srht_scatter_fwht, srht_scatter_fwht_ref)
+from .wht_cuda import (ROUTE_LOG_W, fwht_signed, fwht_signed_2mm,
+                       fwht_signed_2mm_ref, fwht_signed_ref, srht_fwht_gather,
+                       srht_fwht_gather_blocks, srht_fwht_gather_ref,
+                       srht_scatter_fwht, srht_scatter_fwht_ref,
+                       srht_scatter_fwht_sum)
 from ..config import SparcParams, create_base_matrix
 from ..device import resolve_device
 
@@ -89,6 +110,37 @@ def fwht_transform(fwht_mode: str = "ms", fwht_kernel: bool = True):
             fn = functools.partial(fn, mm_dtype="float32")
         return fn
     raise ValueError(f"fwht_mode must be one of {FWHT_MODES}, got {fwht_mode!r}")
+
+
+def window_block_route(device_type: str, fwht_kernel: bool, fwht_mode: str,
+                       is_complex: bool, offset: int, window: int, w: int,
+                       tall: bool, identity: bool) -> bool:
+    """Whether a `SparcDesign` product takes K1's block-indexed route, from
+    what the values and the design show: values on a CUDA device, real, K1
+    ("ms", the kernel on); a full offset-0 window (`window` == w) on K1's
+    block route (w <= 2^15); a design that is not tall (its window side is
+    its columns); and columns whose segments are not the identity (some
+    column block holds more than one block, or a block lies elsewhere than
+    its own)."""
+    return (device_type == "cuda" and fwht_kernel and fwht_mode == "ms"
+            and not is_complex and offset == 0 and window == w
+            and w.bit_length() - 1 <= ROUTE_LOG_W["block"][1] and not tall
+            and not identity)
+
+
+def segment_table(seg: tuple, num: int, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ptr (num + 1,), blocks (E,)) int32 on `device`, two views of one
+    upload: segment s holds the blocks e with seg[e] == s, ascending, as
+    blocks[ptr[s]:ptr[s + 1]]. Raises on a segment id outside [0, num)."""
+    seg = np.asarray(seg, dtype=np.int64).reshape(-1)
+    if seg.size and not (seg.min() >= 0 and seg.max() < num):
+        raise ValueError(f"segment ids outside [0, {num})")
+    ptr = np.zeros(num + 1, dtype=np.int32)
+    ptr[1:] = np.cumsum(np.bincount(seg, minlength=num))
+    blocks = np.argsort(seg, kind="stable").astype(np.int32)
+    table = torch.as_tensor(np.concatenate([ptr, blocks]), device=device)
+    return table[:num + 1], table[num + 1:]
 
 
 def _next_pow2_at_least(x: int) -> int:
@@ -209,6 +261,12 @@ class SparcDesign:
     Static metadata:
       rows/cols : nonzero-block coordinates; shapes Lr, Lc, Mr, Mc, w, n, LM.
       tall      : Mr > Mc (index set on columns) or not (index set on rows).
+    The column segment table (`segment_table` of the cols; int32 on the
+    design's device) is built with the design, and rebuilt by `with_leaves`
+    from a shard's own cols; it is None where the block-indexed route
+    cannot use it: a tall design, or columns that are the identity (one
+    block a column block, in order: a one-block design uploads nothing
+    more).
     """
 
     idx: torch.Tensor
@@ -227,6 +285,8 @@ class SparcDesign:
     _idx32: torch.Tensor = field(init=False, repr=False)
     _rows_t: torch.Tensor = field(init=False, repr=False)
     _cols_t: torch.Tensor = field(init=False, repr=False)
+    _col_ptr: torch.Tensor | None = field(init=False, repr=False)
+    _col_blocks: torch.Tensor | None = field(init=False, repr=False)
 
     def __post_init__(self):
         dev = self.signs.device
@@ -237,6 +297,9 @@ class SparcDesign:
         self._idx32 = self.idx.to(torch.int32)
         self._rows_t = torch.tensor(self.rows, dtype=torch.int64, device=dev)
         self._cols_t = torch.tensor(self.cols, dtype=torch.int64, device=dev)
+        self._col_ptr, self._col_blocks = (
+            (None, None) if self.tall or self.cols == tuple(range(self.Lc))
+            else segment_table(self.cols, self.Lc, dev))
 
     @property
     def tall(self) -> bool:
@@ -328,12 +391,26 @@ class SparcDesign:
         """The (B, E, d) block inputs of (B, num, d) blocks."""
         return x if seg == tuple(range(num)) else x.index_select(1, seg_t)
 
+    def _block_route(self, v: torch.Tensor, fwht_kernel: bool,
+                     fwht_mode: str) -> bool:
+        """`window_block_route` for values v through this design."""
+        return window_block_route(v.device.type, fwht_kernel, fwht_mode,
+                                  v.is_complex(), self.offset,
+                                  max(self.Mr, self.Mc), self.w, self.tall,
+                                  self._col_ptr is None)
+
     def ab(self, beta: torch.Tensor, fwht_kernel: bool = True,
            fwht_mode: str = "ms") -> torch.Tensor:
         """A @ beta. beta: (..., L*M) -> (..., n)."""
         xb = beta.reshape(-1, self.Lc, self.Mc)
-        parts = self._fwd_blocks(self._select(xb, self.cols, self._cols_t,
-                                              self.Lc), fwht_kernel, fwht_mode)
+        if self._block_route(beta, fwht_kernel, fwht_mode):
+            # the column select folds into K1's load
+            parts = srht_fwht_gather_blocks(
+                xb.contiguous(), self.signs, self._idx32, self._col_ptr,
+                self._col_blocks, validate=False) * self.scale[:, None]
+        else:
+            parts = self._fwd_blocks(self._select(xb, self.cols, self._cols_t,
+                                                  self.Lc), fwht_kernel, fwht_mode)
         out = self._segment_sum(parts, self.rows, self._rows_t, self.Lr)
         return out.reshape(beta.shape[:-1] + (self.n,))
 
@@ -341,9 +418,15 @@ class SparcDesign:
            fwht_mode: str = "ms") -> torch.Tensor:
         """A.T @ z. z: (..., n) -> (..., L*M)."""
         zb = z.reshape(-1, self.Lr, self.Mr)
-        parts = self._adj_blocks(self._select(zb, self.rows, self._rows_t,
-                                              self.Lr), fwht_kernel, fwht_mode)
-        out = self._segment_sum(parts, self.cols, self._cols_t, self.Lc)
+        zs = self._select(zb, self.rows, self._rows_t, self.Lr)
+        if self._block_route(z, fwht_kernel, fwht_mode):
+            # the column sum folds into K1's store, in block order
+            out = srht_scatter_fwht_sum(zs * self.scale[:, None], self._idx32,
+                                        self.signs, self.w, self._col_ptr,
+                                        self._col_blocks, validate=False)
+        else:
+            parts = self._adj_blocks(zs, fwht_kernel, fwht_mode)
+            out = self._segment_sum(parts, self.cols, self._cols_t, self.Lc)
         return out.reshape(z.shape[:-1] + (self.LM,))
 
     # -- test utilities -----------------------------------------------------

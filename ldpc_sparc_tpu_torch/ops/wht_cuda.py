@@ -34,11 +34,22 @@ indexed outputs in place of an (R, w) array that a gather then reads.
 Their plain versions are the zero fill, `scatter_`, transform and
 `gather` composition.
 
+`srht_fwht_gather_blocks` and `srht_scatter_fwht_sum` are the same two
+products for a design of E blocks whose window side is Lw window blocks
+("block" route only, w <= 2^15), with the window side addressed by a
+segment table (`ptr`, `blocks`): the forward product reads each block's
+input from its window block by index (the select folded into the load),
+and the adjoint adds the blocks of each window block in the table's order
+as it stores (the segment sum folded into the store, no float atomics).
+Their plain versions are `index_select` before, and an in-order sum after,
+the fused products' plain versions.
+
 On a CUDA tensor the kernel (`csrc/fwht_signed.cu`, `csrc/fwht_2mm.cu`)
 runs, or the call raises; on a CPU tensor the plain version runs.
 The counter `k1.launches` (`utils/tracing.py`) counts K1's launches, the
-two fused entry points included, and `k2.launches` K2's (one per call,
-however many passes a kernel takes).
+fused entry points included, `k1.block_products` those of the two
+block-indexed products, and `k2.launches` K2's (one per call, however many
+passes a kernel takes).
 
 K1 is float32 throughout. K2 is the two-sided form H_a . X . H_b on the
 (a, b) view of each row with bf16 operands and float32 accumulation, the
@@ -341,6 +352,156 @@ def srht_fwht_gather(x: torch.Tensor, signs: torch.Tensor | None,
         int(apply_pre), code, _stream(x))
     _build.check(status, "srht_fwht_gather")
     count("k1.launches")
+    return out
+
+
+# ---- the block-indexed products: the window side's select and sum in K1 -------
+
+def _check_segments(ptr: torch.Tensor, blocks: torch.Tensor, Lw: int, E: int,
+                    device, validate: bool) -> None:
+    for t, n, name in ((ptr, Lw + 1, "ptr"), (blocks, E, "blocks")):
+        if (t.dim() != 1 or t.shape[0] != n or t.dtype != torch.int32
+                or not t.is_contiguous() or t.device != device):
+            raise ValueError(f"{name} must be a contiguous int32 ({n},) tensor "
+                             f"on {device}")
+    if validate:
+        p = ptr.long()
+        if (int(p[0]) != 0 or int(p[-1]) != E or bool((p[1:] < p[:-1]).any())
+                or not torch.equal(blocks.long().sort().values,
+                                   torch.arange(E, device=device))):
+            raise ValueError("ptr and blocks are not a segment table of "
+                             f"{E} blocks in {Lw} segments")
+
+
+def _window_blocks(ptr: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """(E,) int64: the window block of each of the table's blocks."""
+    counts = (ptr[1:] - ptr[:-1]).long()
+    win = torch.empty(blocks.shape[0], dtype=torch.int64, device=blocks.device)
+    win[blocks.long()] = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=blocks.device), counts)
+    return win
+
+
+def srht_fwht_gather_blocks_ref(x: torch.Tensor, signs: torch.Tensor | None,
+                                idx: torch.Tensor, ptr: torch.Tensor,
+                                blocks: torch.Tensor) -> torch.Tensor:
+    """The plain version: an `index_select` of each block's window block, then
+    `srht_fwht_gather_ref`."""
+    B, _, w = x.shape
+    E, k = idx.shape
+    xs = x.index_select(1, _window_blocks(ptr, blocks)).reshape(B * E, w)
+    return srht_fwht_gather_ref(xs, signs, idx).reshape(B, E, k)
+
+
+def srht_scatter_fwht_sum_ref(vals: torch.Tensor, idx: torch.Tensor,
+                              signs: torch.Tensor | None, w: int,
+                              ptr: torch.Tensor,
+                              blocks: torch.Tensor) -> torch.Tensor:
+    """The plain version: `srht_scatter_fwht_ref` of every block, then each
+    window block's parts added in the table's order."""
+    B, E, k = vals.shape
+    parts = srht_scatter_fwht_ref(vals.reshape(B * E, k), idx, signs,
+                                  w).reshape(B, E, w)
+    p, bl = ptr.tolist(), blocks.tolist()
+    out = parts.new_zeros(B, len(p) - 1, w)
+    for s in range(len(p) - 1):
+        for e in bl[p[s]:p[s + 1]]:
+            out[:, s] += parts[:, e]
+    return out
+
+
+def srht_fwht_gather_blocks(x: torch.Tensor, signs: torch.Tensor | None,
+                            idx: torch.Tensor, ptr: torch.Tensor,
+                            blocks: torch.Tensor,
+                            validate: bool = True) -> torch.Tensor:
+    """The forward SRHT product of E blocks that read Lw window blocks:
+    out[b, e] (B, E, k) is entry idx[e, j] of FWHT(x[b, s] * signs[e])
+    (x (B, Lw, w)), s the window block whose segment holds e.
+
+    ptr (Lw + 1,) and blocks (E,) int32 are the segment table: segment s
+    holds blocks[ptr[s]:ptr[s + 1]]. idx (E, k) int32 with entries in
+    [0, w); signs (E, w) or None; w <= 2^15. On a CUDA tensor one K1 launch
+    on the block route reads each block's input from x by its window block:
+    no (B, E, w) copy of x exists. validate=False skips the checks of idx's
+    range and of the table (device synchronisations) for a design that
+    checked both when it was built."""
+    if x.dim() != 3 or idx.dim() != 2:
+        raise ValueError(f"x must be 3-D and idx 2-D, got {tuple(x.shape)} and "
+                         f"{tuple(idx.shape)}")
+    B, Lw, w = x.shape
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _check(x.view(B * Lw, w), None)
+    if w.bit_length() - 1 > ROUTE_LOG_W["block"][1]:
+        raise ValueError(f"the block-indexed products take widths up to "
+                         f"2^{ROUTE_LOG_W['block'][1]}, not {w}")
+    E, k = idx.shape
+    _check_signs(signs, E, w, x.device)
+    _check_idx(idx, E, k, w, x.device, signs, validate)
+    _check_segments(ptr, blocks, Lw, E, x.device, validate)
+    if x.device.type == "cpu":
+        return srht_fwht_gather_blocks_ref(x, signs, idx, ptr, blocks)
+    if x.device.type != "cuda":
+        raise ValueError(f"no srht_fwht_gather_blocks kernel for device {x.device}")
+    out = torch.empty(B, E, k, dtype=torch.float32, device=x.device)
+    if B == 0 or k == 0:
+        return out
+    idx32 = idx if idx.dtype == torch.int32 else idx.to(torch.int32)
+    status = _build.load().ldpc_srht_fwht_gather_blocks(
+        x.data_ptr(), None if signs is None else signs.data_ptr(),
+        idx32.data_ptr(), out.data_ptr(), B, k, w.bit_length() - 1, E, Lw,
+        ptr.data_ptr(), blocks.data_ptr(), _stream(x))
+    _build.check(status, "srht_fwht_gather_blocks")
+    count("k1.launches")
+    count("k1.block_products")
+    return out
+
+
+def srht_scatter_fwht_sum(vals: torch.Tensor, idx: torch.Tensor,
+                          signs: torch.Tensor | None, w: int, ptr: torch.Tensor,
+                          blocks: torch.Tensor,
+                          validate: bool = True) -> torch.Tensor:
+    """The adjoint SRHT product of E blocks summed into Lw window blocks:
+    out[b, s] (B, Lw, w) is the sum, over the blocks e of segment s in the
+    table's order, of FWHT(the zero row that holds vals[b, e, j] at
+    idx[e, j]) * signs[e] (vals (B, E, k)).
+
+    Arguments as in `srht_fwht_gather_blocks`. On a CUDA tensor one K1
+    launch on the block route: a block owns out[b, s], stores the first
+    block's transform and adds the others to it in order, so that no
+    (B, E, w) array of parts exists, no float atomic adds, and two runs
+    give the same bits."""
+    _check_width(w)
+    if vals.dim() != 3 or idx.dim() != 2:
+        raise ValueError(f"vals must be 3-D and idx 2-D, got {tuple(vals.shape)} "
+                         f"and {tuple(idx.shape)}")
+    B, E, k = vals.shape
+    if not vals.is_contiguous():
+        raise ValueError("vals must be contiguous")
+    _check_small(vals.view(B * E, k), "vals")
+    if w.bit_length() - 1 > ROUTE_LOG_W["block"][1]:
+        raise ValueError(f"the block-indexed products take widths up to "
+                         f"2^{ROUTE_LOG_W['block'][1]}, not {w}")
+    _check_signs(signs, E, w, vals.device)
+    _check_idx(idx, E, k, w, vals.device, signs, validate)
+    Lw = ptr.shape[0] - 1 if ptr.dim() == 1 else -1
+    _check_segments(ptr, blocks, Lw, E, vals.device, validate)
+    if vals.device.type == "cpu":
+        return srht_scatter_fwht_sum_ref(vals, idx, signs, w, ptr, blocks)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no srht_scatter_fwht_sum kernel for device {vals.device}")
+    out = torch.empty(B, Lw, w, dtype=torch.float32, device=vals.device)
+    if B == 0:
+        return out
+    idx32 = idx if idx.dtype == torch.int32 else idx.to(torch.int32)
+    status = _build.load().ldpc_srht_scatter_fwht_sum(
+        vals.data_ptr(), idx32.data_ptr(),
+        None if signs is None else signs.data_ptr(), out.data_ptr(), B, k,
+        w.bit_length() - 1, E, Lw, ptr.data_ptr(), blocks.data_ptr(),
+        _stream(vals))
+    _build.check(status, "srht_scatter_fwht_sum")
+    count("k1.launches")
+    count("k1.block_products")
     return out
 
 

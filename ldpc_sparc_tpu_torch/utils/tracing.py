@@ -26,6 +26,10 @@ Counters:
     k1.launches .. k4.launches   launches of the hand-written kernels
                         (`ops/wht_cuda.py` K1 and K2, `ops/denoiser_cuda.py`
                         K3, `ops/bp_cuda.py` K4)
+    k1.block_products   of K1's launches, the design products that took the
+                        block-indexed route (`ops/wht_cuda.py`): the window
+                        side selected or summed by block index, one a
+                        product (an SC decode of t_max 40 counts 77)
 """
 
 from __future__ import annotations

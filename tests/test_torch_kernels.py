@@ -352,6 +352,136 @@ def test_decode_kernel_path_matches_plain_path():
     assert torch.equal(bitops.msg_vector_to_bits(beta_k, params.M), bits)
 
 
+# ---- the block-indexed design products: the column select and sum in K1 -------
+
+# designs whose columns are not the identity, on K1's block route
+BLOCK_CODES = {
+    "sc_w12": dict(P=15.0, R=1.0, L=256, M=128, spatially_coupled=True, omega=3,
+                   Lambda=8),
+    # the benchmark's SC cell: E = 192 blocks of 2^15 (4 rows here)
+    "sc_w15": dict(P=15.0, R=1.5, L=2048, M=512, spatially_coupled=True, omega=6,
+                   Lambda=32),
+}
+
+
+def _within(got, want, rel=1e-5):
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+
+
+def _in_order_sum(parts, ptr, blocks):
+    """(B, E, d) parts summed into the table's segments, block order."""
+    p, bl = ptr.tolist(), blocks.tolist()
+    out = parts.new_zeros(parts.shape[0], len(p) - 1, parts.shape[2])
+    for s in range(len(p) - 1):
+        for e in bl[p[s]:p[s + 1]]:
+            out[:, s] += parts[:, e]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BLOCK_CODES))
+def test_block_indexed_products_match_plain(name):
+    """ab and az take the block-indexed route, one K1 launch a product, and
+    match the plain path within 1e-5 of the largest entry. On the column
+    side they equal the route they replace: ab's gathered parts bit for
+    bit, and az bit for bit against today's fused parts added in block
+    order."""
+    dev = _card()
+    td = SparcDesign.for_params(SparcParams(**BLOCK_CODES[name]), 1.0, 5, device=dev)
+    assert td.offset == 0 and td.E > 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    beta = torch.randn(4, td.LM, generator=gen, device=dev)
+    z = torch.randn(4, td.n, generator=gen, device=dev)
+    for prod, v in ((td.ab, beta), (td.az, z)):
+        before = counters()
+        got = prod(v)
+        after = counters()
+        assert after["k1.launches"] - before["k1.launches"] == 1
+        assert after["k1.block_products"] - before["k1.block_products"] == 1
+        _within(got, prod(v, fwht_kernel=False))
+    xb, zb = beta.reshape(4, td.Lc, td.Mc), z.reshape(4, td.Lr, td.Mr)
+    table = (td._col_ptr, td._col_blocks)
+    got = wht_cuda.srht_fwht_gather_blocks(xb.contiguous(), td.signs, td._idx32,
+                                           *table) * td.scale[:, None]
+    assert torch.equal(got, td._fwd_blocks(td._select(xb, td.cols, td._cols_t,
+                                                      td.Lc)))
+    want = _in_order_sum(td._adj_blocks(td._select(zb, td.rows, td._rows_t, td.Lr)),
+                         *table)
+    assert torch.equal(td.az(z).reshape(want.shape), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BLOCK_CODES))
+def test_window_sum_repeats_its_bits(name):
+    """az, whose column side is summed, adds in block order with no float
+    atomics: two calls, the same bits."""
+    dev = _card()
+    td = SparcDesign.for_params(SparcParams(**BLOCK_CODES[name]), 1.0, 5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    z = torch.randn(64, td.n, generator=gen, device=dev)
+    assert torch.equal(td.az(z), td.az(z))
+
+
+@pytest.mark.cuda
+def test_block_products_count_in_an_sc_decode_and_none_in_a_flagship_decode():
+    """k1.block_products: 2 (t_max - 1) - 1 = 77 for an SC decode of t_max 40
+    and 1 for its encode; 0 for a one-block (flagship) design."""
+    dev = _card()
+    for kw, t_max, want in ((BLOCK_CODES["sc_w12"], 40, 78),
+                            (dict(P=15.0, R=1.0, L=1024, M=512), 30, 0)):
+        params = SparcParams(**kw)
+        design = SparcDesign.for_params(params, 1.0, 5, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        bits = bitops.random_bits(gen, 4 * params.bit_len).reshape(4, -1)
+        before = counters()
+        y = sparc.awgn_channel(design.ab(bitops.bits_to_msg_vector(bits, params.M)),
+                               1.0, gen)
+        sparc.decode_batch(y, design, params, DecodeParams(t_max=t_max), 1.0)
+        after = counters()
+        assert after["k1.block_products"] - before["k1.block_products"] == want
+        assert after["k1.launches"] - before["k1.launches"] == 2 * (t_max - 1)
+
+
+# designs that keep today's route: a 2^16 window (the cluster route), an
+# offset-1 window, complex values, a tall PA design (n = 512 rows of one row
+# block that every block sums into)
+BYPASS_CODES = {
+    "pa_tall": dict(P=15.0, R=0.5, L=64, M=16, power_allocated=True, B=4,
+                    R_PA_ratio=1.0),
+    "sc_cluster_w16": dict(P=15.0, R=1.5, L=512, M=512, spatially_coupled=True,
+                           omega=2, Lambda=4),
+    "sc_offset1": dict(P=15.0, R=1.0, L=48, M=16, spatially_coupled=True, omega=2,
+                       Lambda=4),
+    "sc_complex": dict(P=15.0, R=1.0, L=256, M=128, spatially_coupled=True,
+                       omega=3, Lambda=8, is_complex=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BYPASS_CODES) + ["sc_2mm"])
+def test_other_designs_keep_todays_route(name):
+    """The cluster route, offset-1 windows, complex values, a tall design
+    and K2's mode take no block-indexed product, and still match their
+    plain paths."""
+    dev = _card()
+    kw = BLOCK_CODES["sc_w12"] if name == "sc_2mm" else BYPASS_CODES[name]
+    mode = "2mm" if name == "sc_2mm" else "ms"
+    td = SparcDesign.for_params(SparcParams(**kw), 1.0, 5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    beta = torch.randn(3, td.LM, generator=gen, device=dev)
+    z = torch.randn(3, td.n, generator=gen, device=dev)
+    if kw.get("is_complex"):
+        beta = torch.complex(beta, torch.randn(3, td.LM, generator=gen, device=dev))
+        z = torch.complex(z, torch.randn(3, td.n, generator=gen, device=dev))
+    before = counters()["k1.block_products"]
+    for prod, v in ((td.ab, beta), (td.az, z)):
+        # "2mm" keeps K1 below K2's widths (2^12 here), whose plain version
+        # is "ms"'s
+        _within(prod(v, fwht_mode=mode), prod(v, fwht_kernel=False))
+    assert counters()["k1.block_products"] == before
+
+
 # ---- K4: the whole LDPC BP decode ------------------------------------------
 # (code, method, SNR in dB of the random noisy inputs): the largest check
 # degree (802.11n r=5/6, dc_max 20), the largest z, and the largest shared

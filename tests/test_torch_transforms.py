@@ -27,6 +27,10 @@ CODES = {
                 R_PA_ratio=1.0), 1.0),
     "sc": (dict(P=15.0, R=1.0, L=64, M=16, spatially_coupled=True, omega=2,
                 Lambda=4), 1.0),
+    # n = 512 rows of one row block over 4 column blocks of 256: tall, every
+    # block summed into the one row block
+    "pa_tall": (dict(P=15.0, R=0.5, L=64, M=16, power_allocated=True, B=4,
+                     R_PA_ratio=1.0), 1.0),
 }
 
 
@@ -196,3 +200,156 @@ def test_entry_points_take_the_card_by_default():
         ttr.SparcDesign.build(np.ones((1, 1)), 8, 4, 8, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttr.stack_designs(TParams(**kw), var, 0, 2)
+
+
+# ---- the column segment table and the block-indexed route ----------------------
+
+def _segments(seg, num):
+    """Segment s's blocks, ascending, from the block coordinates."""
+    return [[e for e, v in enumerate(seg) if v == s] for s in range(num)]
+
+
+def _table_segments(ptr, blocks):
+    p, b = ptr.tolist(), blocks.tolist()
+    return [b[p[s]:p[s + 1]] for s in range(len(p) - 1)]
+
+
+@pytest.mark.parametrize("name", sorted(CODES))
+def test_column_segment_table_matches_cols(name):
+    """The column table against the block coordinates; None where the
+    design is tall (the tall PA design) or its columns are the identity (the
+    plain, offset-1 and wide PA designs)."""
+    _, td = _designs(name)
+    if td.tall or td.cols == tuple(range(td.Lc)):
+        assert td._col_ptr is None and td._col_blocks is None
+        return
+    assert td._col_ptr.dtype == td._col_blocks.dtype == torch.int32
+    assert td._col_ptr.shape == (td.Lc + 1,) and td._col_blocks.shape == (td.E,)
+    assert _table_segments(td._col_ptr, td._col_blocks) == _segments(td.cols, td.Lc)
+
+
+@pytest.mark.parametrize("sec", [2, 4])
+def test_segment_table_of_a_shard(sec):
+    """A section shard made by `with_leaves` rebuilds its table from its own
+    local cols (its blocks in column-major order)."""
+    from ldpc_sparc_tpu_torch.parallel.sharded import ShardedDesign
+    kw, var = CODES["sc"]
+    sd = ShardedDesign(TParams(**kw), var, 5, device="cpu")
+    for i in range(sec):
+        loc = sd.shard(i, sec)
+        assert loc.Lc == sd.Lc // sec and not loc.tall
+        assert _table_segments(loc._col_ptr, loc._col_blocks) == \
+            _segments(loc.cols, loc.Lc)
+
+
+def test_segment_table_rejects_ids_outside():
+    ptr, blocks = ttr.segment_table((0, 2, 2, 1), 3)
+    assert ptr.tolist() == [0, 1, 2, 4] and blocks.tolist() == [0, 3, 1, 2]
+    with pytest.raises(ValueError, match="outside"):
+        ttr.segment_table((0, 3), 3)
+
+
+ROUTE_YES = dict(device_type="cuda", fwht_kernel=True, fwht_mode="ms",
+                 is_complex=False, offset=0, window=1 << 15, w=1 << 15,
+                 tall=False, identity=False)
+ROUTE_NO = {
+    "cpu": dict(device_type="cpu"),
+    "plain_chain": dict(fwht_kernel=False),
+    "2mm": dict(fwht_mode="2mm"),
+    "2mm_f32": dict(fwht_mode="2mm_f32"),
+    "complex": dict(is_complex=True),
+    "offset1": dict(offset=1, window=(1 << 15) - 1),
+    "cluster_2_16": dict(window=1 << 16, w=1 << 16),
+    "tall": dict(tall=True),
+    "identity": dict(identity=True),
+}
+
+
+@pytest.mark.parametrize("w", [1, 1 << 12, 1 << 15])
+def test_window_block_route_takes_the_block_route(w):
+    assert ttr.window_block_route(**{**ROUTE_YES, "window": w, "w": w})
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_NO))
+def test_window_block_route_keeps_todays_route(case):
+    """One condition off is enough to keep the select, srht_apply and
+    index_add_ route."""
+    assert not ttr.window_block_route(**{**ROUTE_YES, **ROUTE_NO[case]})
+
+
+def _values_on(device_type, is_complex=False):
+    """A stand-in for a tensor on `device_type`: the route reads only the
+    device and whether the values are complex, so no card is needed."""
+    import types
+    return types.SimpleNamespace(device=torch.device(device_type),
+                                 is_complex=lambda: is_complex)
+
+
+# name -> whether the design's products take the block-indexed route on a card
+DESIGN_ROUTES = {"plain": False, "offset1": False, "pa": False, "sc": True,
+                 "pa_tall": False}
+
+
+@pytest.mark.parametrize("name", sorted(DESIGN_ROUTES))
+def test_design_routes_by_its_shape(name):
+    """SC (several blocks a column) takes the route on a card; a one-block
+    design, an offset-1 window, a PA design whose columns are the identity
+    and a tall PA design (every block on the one row block) do not; neither
+    does any design on the CPU, with complex values or in another mode."""
+    _, td = _designs(name)
+    assert td._block_route(_values_on("cuda"), True, "ms") == DESIGN_ROUTES[name]
+    assert not td._block_route(_values_on("cpu"), True, "ms")
+    assert not td._block_route(_values_on("cuda", True), True, "ms")
+    assert not td._block_route(_values_on("cuda"), True, "2mm")
+    assert not td._block_route(_values_on("cuda"), False, "ms")
+
+
+def _sc_or_shard(name):
+    """The SC design, or a section shard of it made by `with_leaves`."""
+    if name == "sc":
+        return _designs(name)[1]
+    from ldpc_sparc_tpu_torch.parallel.sharded import ShardedDesign
+    kw, var = CODES["sc"]
+    return ShardedDesign(TParams(**kw), var, 5, device="cpu").shard(1, 2)
+
+
+@pytest.mark.parametrize("name", ["sc", "sc_shard"])
+def test_block_indexed_plain_versions_equal_select_and_sum(name):
+    """The plain versions of the block-indexed products against the route
+    they replace (select, per-block product, segment sum), on the column
+    side of each product: ab's select, az's sum; bit for bit on the CPU,
+    where index_add_ adds in block order."""
+    from ldpc_sparc_tpu_torch.ops import wht_cuda
+    td = _sc_or_shard(name)
+    gen = torch.Generator().manual_seed(4)
+    beta = torch.randn(3, td.LM, generator=gen)
+    z = torch.randn(3, td.n, generator=gen)
+    table = (td._col_ptr, td._col_blocks)
+    xb, zb = beta.reshape(3, td.Lc, td.Mc), z.reshape(3, td.Lr, td.Mr)
+    want_gather = td._fwd_blocks(td._select(xb, td.cols, td._cols_t, td.Lc))
+    got = wht_cuda.srht_fwht_gather_blocks(xb.contiguous(), td.signs,
+                                           td._idx32, *table) * td.scale[:, None]
+    assert torch.equal(got, want_gather)
+    x = td._select(zb, td.rows, td._rows_t, td.Lr) * td.scale[:, None]
+    got = wht_cuda.srht_scatter_fwht_sum(x, td._idx32, td.signs, td.w, *table)
+    assert torch.equal(got, td.az(z).reshape(3, td.Lc, td.Mc))
+
+
+def test_block_indexed_products_reject_bad_tables():
+    from ldpc_sparc_tpu_torch.ops import wht_cuda
+    _, td = _designs("sc")
+    x = torch.zeros(2, td.Lc, td.Mc)
+    vals = torch.zeros(2, td.E, td.Mr)
+    bad = td._col_blocks.clone()
+    bad[0] = bad[1]   # not a permutation of the blocks
+    with pytest.raises(ValueError, match="segment table"):
+        wht_cuda.srht_fwht_gather_blocks(x, td.signs, td._idx32, td._col_ptr, bad)
+    with pytest.raises(ValueError, match="segment table"):
+        wht_cuda.srht_scatter_fwht_sum(vals, td._idx32, td.signs, td.w,
+                                       td._col_ptr.flip(0), td._col_blocks)
+    with pytest.raises(ValueError, match="int32"):
+        wht_cuda.srht_fwht_gather_blocks(x, td.signs, td._idx32,
+                                         td._col_ptr.long(), td._col_blocks)
+    with pytest.raises(ValueError, match="widths up to"):
+        wht_cuda.srht_scatter_fwht_sum(vals, td._idx32, None, 1 << 16,
+                                       td._col_ptr, td._col_blocks)
