@@ -41,8 +41,8 @@ from .models.sparc import sparc_sim, amp_decode, awgn_channel
 from .models.state_evolution import sparc_se
 from .models.ldpc import LdpcCode, get_code
 from .models.concat import ConcatCodec, DECODERS, concat_sim
-from .parallel.montecarlo import (concat_ber_point, concat_mc_trial_errors,
-                                  ldpc_waterfall_campaign, sparc_ber_sweep,
-                                  sparc_mc_counts)
+from .parallel.montecarlo import (concat_ber_point, concat_mc_counts,
+                                  concat_mc_trial_errors, ldpc_waterfall_campaign,
+                                  sparc_ber_sweep, sparc_mc_counts)
 
 __version__ = "0.1.0"

@@ -33,11 +33,21 @@ every BP call K4 (`ops/bp_cuda.py`) when the tensors lie on a card;
 denoiser is the plain `mmse_denoise` (BP is composed after it). The bridges'
 mask products need float32 matmuls: keep
 `torch.backends.cuda.matmul.allow_tf32` False (see `ops/bridges.py`).
+
+Soft outputs: `decode_soft` returns, beside the decisions, each AMP step's
+tau^2 and the iterations of every BP call, summed over a trial's LDPC
+blocks (`ConcatDecode`). They stay on the device, one tensor a step or a
+BP call, and are stacked once at the end of the decode: nothing is read
+back inside the loop. Spans and counters (`utils/tracing.py`):
+`concat.amp` around each AMP step; in the integrated decoder `concat.eta`
+around the BP-composed denoiser and its derivative, `concat.bp_final`
+around the last step's hard BP, and the counters `concat.iters` (t_max a
+decode) and `concat.decodes`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,6 +62,7 @@ from ..ops.denoiser import map_estimate, mmse_denoise
 from ..ops.transforms import DesignStack, SparcDesign
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
+from ..utils import tracing
 from ..utils.metrics import bit_error_rate
 from .ldpc import LdpcCode, get_code
 from .sparc import awgn_channel
@@ -63,6 +74,36 @@ DECODERS = ("amp_only", "sequential", "sequential_rerun", "naive",
 SEMI_PROTECTED_DECODERS = ("amp_only", "sequential", "naive", "naive_posteriors",
                            "no_onsager")
 _BP_EPS = 1e-7   # float32-safe clip of P(bit = 0): 1 - 1e-15 rounds to 1
+
+
+def amp_steps(decoder: str, t_max: int) -> int:
+    """The AMP steps a decode of `decoder` runs, each giving one tau^2:
+    t_max, or 2 t_max for sequential_rerun, which runs AMP twice."""
+    return 2 * t_max if decoder == "sequential_rerun" else t_max
+
+
+class ConcatDecode(NamedTuple):
+    """What `ConcatCodec.decode_soft` returns for B trials."""
+    bits: torch.Tensor       # (B, user_bits_len) int32 user-bit decisions
+    tau_sqr: torch.Tensor    # (B, amp_steps) float32 tau^2 of each AMP step
+    bp_iters: torch.Tensor   # (B,) int64 iterations of every BP call, summed
+    #                          over the trial's LDPC blocks
+
+
+class _Soft:
+    """A decode's soft outputs as they are made: each AMP step's (B,) tau^2
+    and each BP call's (B, blocks) iterations, on the device until
+    `result` stacks them."""
+
+    def __init__(self):
+        self.taus: list = []
+        self.iters: list = []
+
+    def result(self, bits: torch.Tensor) -> ConcatDecode:
+        B = bits.shape[0]
+        iters = (torch.cat(self.iters, -1).sum(-1, dtype=torch.int64) if self.iters
+                 else torch.zeros(B, dtype=torch.int64, device=bits.device))
+        return ConcatDecode(bits, torch.stack(self.taus, -1), iters)
 
 
 class ConcatCodec:
@@ -152,16 +193,17 @@ class ConcatCodec:
         Returns (z, s, tau_sqr).
         """
         n, P = self.n, self.sparc.P
-        Ab = design.ab(beta / self.c_amp, fwht_kernel)
-        if onsager == "standard":
-            corr = (z / tau_sqr[..., None]) * (P - (beta ** 2).sum(-1, keepdim=True) / n)
-        elif onsager == "none":
-            corr = 0.0
-        else:  # 'deta'
-            corr = (z / n) * deta_sum[..., None]
-        z = y - Ab + corr
-        s = design.az(z, fwht_kernel) / self.c_amp + beta
-        tau_sqr = (z ** 2).sum(-1) / n
+        with tracing.span("concat.amp"):
+            Ab = design.ab(beta / self.c_amp, fwht_kernel)
+            if onsager == "standard":
+                corr = (z / tau_sqr[..., None]) * (P - (beta ** 2).sum(-1, keepdim=True) / n)
+            elif onsager == "none":
+                corr = 0.0
+            else:  # 'deta'
+                corr = (z / n) * deta_sum[..., None]
+            z = y - Ab + corr
+            s = design.az(z, fwht_kernel) / self.c_amp + beta
+            tau_sqr = (z ** 2).sum(-1) / n
         return z, s, tau_sqr
 
     def _mmse(self, s, tau_sqr, return_probs: bool = False):
@@ -190,23 +232,29 @@ class ConcatCodec:
         like the input (hard=False), or the hard user-bit decisions, the
         first K of each block, (..., mults * K) int32 (hard=True). A block
         whose parity checks hold is frozen, so it may stop before num_its."""
-        lead = bit_probs.shape[:-1]
-        app = bp_decode(self._bit_llrs(bit_probs), self.code.graph,
-                        max_iters=num_its, method="sumprod",
-                        bp_kernel=bp_kernel).app
-        if hard:
-            return (app[..., :self.code.K] < 0).to(torch.int32).reshape(lead + (-1,))
-        return torch.sigmoid(app).reshape(lead + (-1,))
+        return self._bp(bit_probs, num_its, hard, bp_kernel, None)
 
     ldpc_bp_batch = ldpc_bp   # the JAX package's name for the packed form
+
+    def _bp(self, bit_probs, num_its, hard, bp_kernel, soft: Optional[_Soft]):
+        """`ldpc_bp`, keeping the blocks' iterations (..., blocks) in `soft`."""
+        lead = bit_probs.shape[:-1]
+        res = bp_decode(self._bit_llrs(bit_probs), self.code.graph,
+                        max_iters=num_its, method="sumprod", bp_kernel=bp_kernel)
+        if soft is not None:
+            soft.iters.append(res.iterations)
+        if hard:
+            return (res.app[..., :self.code.K] < 0).to(torch.int32).reshape(lead + (-1,))
+        return torch.sigmoid(res.app).reshape(lead + (-1,))
 
     def _split_protected(self, v, per_section):
         u = self.lengths.L_unprotected * per_section if self.ldpc_protected else 0
         return v[..., :u], v[..., u:]
 
-    def _run_amp(self, y, design, t_max: int, fwht_kernel: bool = True):
+    def _run_amp(self, y, design, t_max: int, fwht_kernel: bool, soft: _Soft):
         """Full L3 AMP (sparc_amp, sparc_new.py:885-912): t_max iterations,
-        scalar tau per row, z = y in the first. Returns (beta_mmse, s)."""
+        scalar tau per row, z = y in the first, each tau^2 kept in `soft`.
+        Returns (beta_mmse, s)."""
         lead = y.shape[:-1]
         LM = self.sparc.L * self.sparc.M
         beta = y.new_zeros(lead + (LM,))
@@ -218,6 +266,7 @@ class ConcatCodec:
                 z = y - design.ab(beta / self.c_amp, fwht_kernel) + corr
             s = design.az(z, fwht_kernel) / self.c_amp + beta
             tau_sqr = (z ** 2).sum(-1) / self.n
+            soft.taus.append(tau_sqr)
             beta = self._mmse(s, tau_sqr)
         return beta, s
 
@@ -237,19 +286,32 @@ class ConcatCodec:
                bp_kernel: bool = True) -> torch.Tensor:
         """Decode y (..., n) through `design` (one `SparcDesign` for every
         row) into user-bit decisions (..., user_bits_len) int32."""
-        assert decoder in DECODERS
+        lead = y.shape[:-1]
+        out = self.decode_soft(y.reshape(-1, y.shape[-1]), design, decode_params,
+                               decoder, bp_inner_iters, bp_final_iters, fwht_kernel,
+                               bp_kernel)
+        return out.bits.reshape(lead + (-1,))
+
+    def decode_soft(self, y: torch.Tensor, design, decode_params: DecodeParams,
+                    decoder: str = "sequential", bp_inner_iters: int = 6,
+                    bp_final_iters: int = 200, fwht_kernel: bool = True,
+                    bp_kernel: bool = True) -> ConcatDecode:
+        """Decode B trials y (B, n) through `design` (a `SparcDesign` for
+        every row, or a `DesignStack` with one design a row): the decisions
+        of `decode` and the soft outputs beside them (`ConcatDecode`)."""
+        assert decoder in DECODERS and y.dim() == 2
         if self.ldpc_protected and self.lengths.L_unprotected:
             # the integrated and rerun families need a fully protected
             # message (they do in the reference too, sparc_new.py:66-71)
             assert decoder in SEMI_PROTECTED_DECODERS, (
                 f"decoder {decoder!r} requires a fully protected message "
                 f"(L_unprotected={self.lengths.L_unprotected})")
-        lead = y.shape[:-1]
-        y = y.reshape(-1, y.shape[-1]).to(torch.float32)
+        y = y.to(torch.float32)
         dp, bi, bf = decode_params, bp_inner_iters, bp_final_iters
-        kern = dict(fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
+        soft = _Soft()
+        kern = dict(fwht_kernel=fwht_kernel, bp_kernel=bp_kernel, soft=soft)
         if decoder == "amp_only":
-            out = self._decode_amp_only(y, design, dp, fwht_kernel)
+            out = self._decode_amp_only(y, design, dp, **kern)
         elif decoder == "sequential":
             out = self._decode_sequential(y, design, dp, bf, **kern)
         elif decoder == "sequential_rerun":
@@ -263,7 +325,7 @@ class ConcatCodec:
             out = self._decode_integrated(
                 y, design, dp, bi, bf,
                 posteriors=decoder == "integrated_posteriors", **kern)
-        return out.reshape(lead + (-1,))
+        return soft.result(out)
 
     def decode_batch(self, ys: torch.Tensor, designs, decode_params: DecodeParams,
                      decoder: str = "sequential", bp_inner_iters: int = 6,
@@ -277,38 +339,39 @@ class ConcatCodec:
         return self.decode(ys, designs, decode_params, decoder, bp_inner_iters,
                            bp_final_iters, fwht_kernel, bp_kernel)
 
-    def _decode_amp_only(self, y, design, dp, fwht_kernel):
+    def _decode_amp_only(self, y, design, dp, fwht_kernel, bp_kernel, soft):
         """Plain SPARC decode in the L3 convention (the ldpc_bool=False path
         of sparc_ldpc_decode, sparc_new.py:78-81)."""
-        _, s = self._run_amp(y, design, dp.t_max, fwht_kernel)
+        _, s = self._run_amp(y, design, dp.t_max, fwht_kernel, soft)
         return bitops.msg_vector_to_bits(self._map(s), self.sparc.M).to(torch.int32)
 
-    def _decode_sequential(self, y, design, dp, bf, fwht_kernel, bp_kernel):
+    def _decode_sequential(self, y, design, dp, bf, fwht_kernel, bp_kernel, soft):
         """AMP to completion, then BP (sparc_ldpc_decode, sparc_new.py:53-82)."""
         M = self.sparc.M
-        beta, s = self._run_amp(y, design, dp.t_max, fwht_kernel)
+        beta, s = self._run_amp(y, design, dp.t_max, fwht_kernel, soft)
         _, prot_beta = self._split_protected(beta, M)
         bit_probs = section_probs_to_bit_probs(prot_beta / self.c_amp, M)
-        prot_bits = self.ldpc_bp(bit_probs, bf, True, bp_kernel)
+        prot_bits = self._bp(bit_probs, bf, True, bp_kernel, soft)
         return torch.cat([self._unprotected_bits(s), prot_bits], -1)
 
-    def _decode_sequential_rerun(self, y, design, dp, bf, fwht_kernel, bp_kernel):
+    def _decode_sequential_rerun(self, y, design, dp, bf, fwht_kernel, bp_kernel,
+                                 soft):
         """AMP -> soft BP -> re-encode -> AMP -> MAP (sparc_ldpc_decode_loop,
         sparc_new.py:84-113, with its chunk[c.K] indexing fixed to
         chunk[:K])."""
         M = self.sparc.M
-        beta, _ = self._run_amp(y, design, dp.t_max, fwht_kernel)
+        beta, _ = self._run_amp(y, design, dp.t_max, fwht_kernel, soft)
         bit_probs = section_probs_to_bit_probs(beta / self.c_amp, M)
-        post = self.ldpc_bp(bit_probs, bf, False, bp_kernel)
+        post = self._bp(bit_probs, bf, False, bp_kernel, soft)
         beta_bp = self.c_amp * bit_probs_to_section_probs(post, M)
         new_y = design.ab(beta_bp / self.c_amp, fwht_kernel)
-        _, s2 = self._run_amp(new_y, design, dp.t_max, fwht_kernel)
+        _, s2 = self._run_amp(new_y, design, dp.t_max, fwht_kernel, soft)
         ldpc_bits = bitops.msg_vector_to_bits(self._map(s2), M).to(torch.int32)
         blocks = ldpc_bits.reshape(y.shape[:-1] + (-1, self.code.N))
         return blocks[..., :self.code.K].reshape(y.shape[:-1] + (-1,))
 
     def _decode_interleaved(self, y, design, dp, bi, bf, *, onsager, posteriors,
-                            fwht_kernel, bp_kernel):
+                            fwht_kernel, bp_kernel, soft):
         """One AMP step and `bi` BP iterations per step, then a `bf`-iteration
         hard BP (naively_integrated_decoder, sparc_new.py:257-282; posteriors
         :411-439; without Onsager :230-255). On a semi-protected message BP
@@ -321,10 +384,11 @@ class ConcatCodec:
         for _ in range(dp.t_max - 1):
             z, s, tau_sqr = self._amp_step(design, y, beta, z, tau_sqr,
                                            onsager=onsager, fwht_kernel=fwht_kernel)
+            soft.taus.append(tau_sqr)
             un_beta, prot_beta = self._split_protected(self._mmse(s, tau_sqr), M)
             alpha = prot_beta / self.c_amp
-            post = self.ldpc_bp(section_probs_to_bit_probs(alpha, M), bi, False,
-                                bp_kernel)
+            post = self._bp(section_probs_to_bit_probs(alpha, M), bi, False,
+                            bp_kernel, soft)
             gamma = bit_probs_to_section_probs(post, M)
             if posteriors:
                 gamma = combine_posteriors(alpha, gamma, M)
@@ -332,13 +396,14 @@ class ConcatCodec:
         # the last iteration: AMP step, then the bf-iteration hard BP
         z, s, tau_sqr = self._amp_step(design, y, beta, z, tau_sqr,
                                        onsager=onsager, fwht_kernel=fwht_kernel)
+        soft.taus.append(tau_sqr)
         _, prot_beta = self._split_protected(self._mmse(s, tau_sqr), M)
         bit_probs = section_probs_to_bit_probs(prot_beta / self.c_amp, M)
-        prot_bits = self.ldpc_bp(bit_probs, bf, True, bp_kernel)
+        prot_bits = self._bp(bit_probs, bf, True, bp_kernel, soft)
         return torch.cat([self._unprotected_bits(s), prot_bits], -1)
 
     def _decode_integrated(self, y, design, dp, bi, bf, *, posteriors,
-                           fwht_kernel, bp_kernel):
+                           fwht_kernel, bp_kernel, soft):
         """BP inside the AMP denoiser, with the generalized Onsager term from
         the derivative of the BP-composed denoiser (integrated_decoder,
         sparc_new.py:472-502; eta :709-735; posteriors :675-705, :793-822,
@@ -351,24 +416,31 @@ class ConcatCodec:
             z, s, tau_sqr = self._amp_step(design, y, beta, z, tau_sqr,
                                            onsager="deta", deta_sum=deta_sum,
                                            fwht_kernel=fwht_kernel)
-            # eta: MMSE -> bit probabilities -> BP -> section estimate
-            alpha = self._mmse(s, tau_sqr) / self.c_amp
-            vk0 = section_probs_to_bit_probs(alpha, M)
-            vk = self.ldpc_bp(vk0, bi, False, bp_kernel)
-            gamma = bit_probs_to_section_probs(vk, M)
-            if posteriors:
-                beta = self.c_amp * combine_posteriors(alpha, gamma, M)
-                deta = self._deta_posteriors(alpha, gamma, vk, vk0, tau_sqr, M)
-            else:
-                beta = self.c_amp * gamma
-                deta = self.c_amp * integrated_onsager_derivative(
-                    alpha, vk, vk0, gamma, tau_sqr, M, self.c_amp)
-            deta_sum = deta.sum(-1)
+            soft.taus.append(tau_sqr)
+            with tracing.span("concat.eta"):
+                # eta: MMSE -> bit probabilities -> BP -> section estimate
+                alpha = self._mmse(s, tau_sqr) / self.c_amp
+                vk0 = section_probs_to_bit_probs(alpha, M)
+                vk = self._bp(vk0, bi, False, bp_kernel, soft)
+                gamma = bit_probs_to_section_probs(vk, M)
+                if posteriors:
+                    beta = self.c_amp * combine_posteriors(alpha, gamma, M)
+                    deta = self._deta_posteriors(alpha, gamma, vk, vk0, tau_sqr, M)
+                else:
+                    beta = self.c_amp * gamma
+                    deta = self.c_amp * integrated_onsager_derivative(
+                        alpha, vk, vk0, gamma, tau_sqr, M, self.c_amp)
+                deta_sum = deta.sum(-1)
         # the last iteration: AMP step, MMSE, the bf-iteration hard BP
         z, s, tau_sqr = self._amp_step(design, y, beta, z, tau_sqr, onsager="deta",
                                        deta_sum=deta_sum, fwht_kernel=fwht_kernel)
-        vk0 = section_probs_to_bit_probs(self._mmse(s, tau_sqr) / self.c_amp, M)
-        return self.ldpc_bp(vk0, bf, True, bp_kernel)
+        soft.taus.append(tau_sqr)
+        with tracing.span("concat.bp_final"):
+            vk0 = section_probs_to_bit_probs(self._mmse(s, tau_sqr) / self.c_amp, M)
+            bits = self._bp(vk0, bf, True, bp_kernel, soft)
+        tracing.count("concat.iters", dp.t_max)
+        tracing.count("concat.decodes")
+        return bits
 
     def _deta_posteriors(self, alpha, gamma, vk, vk0, tau_sqr, M):
         """Quotient-rule derivative of the posterior-combining eta

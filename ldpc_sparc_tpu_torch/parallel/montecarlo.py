@@ -12,6 +12,13 @@ Counterpart of `ldpc_sparc_tpu/parallel/montecarlo.py`:
   n_designs = min(8, n_trials). The counters are then a function of
   (seed, trial index) alone, however the trials are grouped: the trials
   of one design decode together, as one `decode_batch` call.
+* `concat_mc_counts`: the concatenated LDPC-SPARC point under the same
+  contract (trial t: user bits then noise from `rng.derive(seed, t)`,
+  design (seed, t % n_designs)), all trials decoded as one
+  `ConcatCodec.decode_soft` call; it returns the point's counters and each
+  trial's errors, BP iterations and tau^2 trajectory, read back in one
+  copy. `concat_mc_trial_errors` and `concat_ber_point` (concat-sweep's
+  point) return parts of it.
 * `ldpc_waterfall_campaign` (`_batch_counts`, `_ldpc_block_counts`): the
   adaptive-SNR protocol of the reference's sim() (ldpc_jossy/py/
   ldpc_awgn.py:60-123) over batches of random codewords, each batch
@@ -29,7 +36,7 @@ the two packages' counters agree statistically, not bit for bit.
 makes the same call): the trials are padded to a multiple of the dp axis
 and dp rank r takes the r-th contiguous share; padded trials are not
 decoded and count nothing. Ranks that differ only in 'sec' repeat the same
-share. The counters (and the concatenated path's per-trial errors) are
+share. The counters (and the concatenated path's per-trial outputs) are
 summed with `all_reduce` over 'dp', so every rank returns the same result,
 and, since a trial is a function of (seed, t) alone, the result of
 `mesh=None`. A campaign batch is a function of (seed, ctr): every dp rank
@@ -49,7 +56,7 @@ import torch
 
 from ..config import ConcatLengths, DecodeParams, LdpcParams, SparcParams
 from ..device import resolve_device
-from ..models.concat import ConcatCodec
+from ..models.concat import ConcatCodec, amp_steps
 from ..models.ldpc import LdpcCode, get_code
 from ..models.sparc import awgn_channel, decode_batch
 from ..ops.bp import bp_decode
@@ -199,14 +206,77 @@ def concat_mc_transmit(codec: ConcatCodec, designs: DesignStack, awgn_var: float
     noise, from `root_generator(derive(seed, t))`; the bits are LDPC-encoded,
     spread by trial t's design (row t - first of `designs`) and sent over
     AWGN."""
-    gens = [rngmod.root_generator(rngmod.derive(seed, t), designs.device)
-            for t in range(first, first + designs.D)]
-    user_bits = torch.stack([bitops.random_bits(g, codec.user_bits_len)
-                             for g in gens]).to(torch.int32)
-    _, beta0 = codec.message_vector(user_bits)
-    x = designs.ab(beta0 / codec.c_amp, fwht_kernel)
-    ys = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
+    with tracing.span("mc.bits"):
+        gens = [rngmod.root_generator(rngmod.derive(seed, t), designs.device)
+                for t in range(first, first + designs.D)]
+        user_bits = torch.stack([bitops.random_bits(g, codec.user_bits_len)
+                                 for g in gens]).to(torch.int32)
+    with tracing.span("mc.encode"):
+        _, beta0 = codec.message_vector(user_bits)
+        x = designs.ab(beta0 / codec.c_amp, fwht_kernel)
+    with tracing.span("mc.noise"):
+        ys = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
     return user_bits, ys
+
+
+def concat_mc_counts(sparc_params: SparcParams, ldpc_params: LdpcParams,
+                     lengths: ConcatLengths, ldpc_protected: bool,
+                     decode_params: DecodeParams, awgn_var: float, seed,
+                     n_trials: int, decoder: str = "sequential",
+                     n_designs: int | None = None, device=None,
+                     fwht_kernel: bool = True, bp_kernel: bool = True,
+                     bp_inner_iters: int = 6, bp_final_iters: int = 200,
+                     mesh=None) -> dict:
+    """One point of n_trials encode -> AWGN -> AMP + BP trials, decoded as
+    one `ConcatCodec.decode_soft` call.
+
+    Trial t: user bits then noise from `root_generator(derive(seed, t))`,
+    design (seed, t % n_designs), n_designs = min(8, n_trials) by default;
+    so each trial's outputs are a function of (seed, t) alone. Returns the
+    counters frames, frame_errs, bit_errs and bits (user bits), and per
+    trial, as numpy arrays in trial order: `errs` (n_trials,) int64 user-bit
+    errors, `bp_iters` (n_trials,) int64 iterations of the decode's BP
+    calls summed over the trial's LDPC blocks, and `tau_sqr` (n_trials,
+    steps) float32, every AMP step's tau^2 (steps = `amp_steps(decoder,
+    t_max)`). All of it comes back in one device-to-host copy. With a mesh,
+    dp rank r decodes its share of the trials and the per-trial outputs
+    are summed over 'dp' by one all_reduce. The counter
+    `concat.bp_codeword_iters` adds this rank's `bp_iters`.
+    """
+    device = _mesh_device(device, mesh)
+    codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
+    if n_designs is None:
+        n_designs = min(8, n_trials)
+    lo, hi, group = _share(n_trials, mesh)
+    # one row a trial: errors, BP iterations, tau^2 of each step; float64
+    # holds all three exactly, so one copy brings them back
+    rows = torch.zeros(n_trials, 2 + amp_steps(decoder, decode_params.t_max),
+                       dtype=torch.float64, device=device)
+    if hi > lo:
+        with tracing.span("mc.designs"):
+            designs = concat_mc_designs(codec, seed, hi - lo, n_designs, device,
+                                        first=lo)
+        user_bits, ys = concat_mc_transmit(codec, designs, awgn_var, seed,
+                                           fwht_kernel, first=lo)
+        with tracing.span("mc.decode"):
+            got = codec.decode_soft(ys, designs, decode_params, decoder,
+                                    bp_inner_iters, bp_final_iters,
+                                    fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
+    with tracing.span("mc.count"):
+        if hi > lo:
+            rows[lo:hi, 0] = (user_bits != got.bits).sum(-1)
+            rows[lo:hi, 1] = got.bp_iters
+            rows[lo:hi, 2:] = got.tau_sqr
+        if group is not None:
+            all_reduce(rows, group)
+        host = rows.cpu().numpy()
+    errs = host[:, 0].astype(np.int64)
+    bp_iters = host[:, 1].astype(np.int64)
+    tracing.count("concat.bp_codeword_iters", int(bp_iters[lo:hi].sum()))
+    return {"frames": int(n_trials), "frame_errs": int((errs > 0).sum()),
+            "bit_errs": int(errs.sum()), "bits": int(n_trials * codec.user_bits_len),
+            "errs": errs, "bp_iters": bp_iters,
+            "tau_sqr": host[:, 2:].astype(np.float32)}
 
 
 def concat_mc_trial_errors(sparc_params: SparcParams, ldpc_params: LdpcParams,
@@ -216,33 +286,14 @@ def concat_mc_trial_errors(sparc_params: SparcParams, ldpc_params: LdpcParams,
                            n_designs: int | None = None, device=None,
                            fwht_kernel: bool = True,
                            bp_kernel: bool = True, mesh=None) -> np.ndarray:
-    """Per-trial user-bit error counts of n_trials encode -> AWGN -> AMP + BP
-    trials, decoded as one `ConcatCodec.decode_batch` call.
-
-    Trial t: user bits then noise from `root_generator(derive(seed, t))`,
-    design (seed, t % n_designs), n_designs = min(8, n_trials) by default;
-    so entry t is a function of (seed, t) alone. Returns an (n_trials,)
-    int64 numpy array (divide by `ConcatCodec.user_bits_len` for the
-    per-run BERs, whose min and max are the reference's error bars).
-    With a mesh, dp rank r decodes its share of the trials and the errors
-    come back on every rank through one all_reduce.
-    """
-    device = _mesh_device(device, mesh)
-    codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
-    if n_designs is None:
-        n_designs = min(8, n_trials)
-    lo, hi, group = _share(n_trials, mesh)
-    errs = torch.zeros(n_trials, dtype=torch.int64, device=device)
-    if hi > lo:
-        designs = concat_mc_designs(codec, seed, hi - lo, n_designs, device, first=lo)
-        user_bits, ys = concat_mc_transmit(codec, designs, awgn_var, seed,
-                                           fwht_kernel, first=lo)
-        bits_out = codec.decode_batch(ys, designs, decode_params, decoder,
-                                      fwht_kernel=fwht_kernel, bp_kernel=bp_kernel)
-        errs[lo:hi] = (user_bits != bits_out).sum(-1)
-    if group is not None:
-        all_reduce(errs, group)
-    return errs.cpu().numpy()
+    """Per-trial user-bit error counts of `concat_mc_counts`' point, an
+    (n_trials,) int64 numpy array (divide by `ConcatCodec.user_bits_len`
+    for the per-run BERs, whose min and max are the reference's error
+    bars)."""
+    return concat_mc_counts(sparc_params, ldpc_params, lengths, ldpc_protected,
+                            decode_params, awgn_var, seed, n_trials, decoder,
+                            n_designs, device, fwht_kernel, bp_kernel,
+                            mesh=mesh)["errs"]
 
 
 def concat_ber_point(sparc_params: SparcParams, ldpc_params: LdpcParams,
@@ -251,19 +302,17 @@ def concat_ber_point(sparc_params: SparcParams, ldpc_params: LdpcParams,
                      n_trials: int, decoder: str = "sequential", device=None,
                      fwht_kernel: bool = True, bp_kernel: bool = True,
                      mesh=None) -> dict:
-    """One sweep point: mean, min and max BER over n_trials (the aggregation
-    of performance_plots_general.py:120-126)."""
-    codec = ConcatCodec(sparc_params, ldpc_params, lengths, ldpc_protected)
-    errs = concat_mc_trial_errors(
-        sparc_params, ldpc_params, lengths, ldpc_protected, decode_params,
-        awgn_var, seed, n_trials, decoder, device=device,
-        fwht_kernel=fwht_kernel, bp_kernel=bp_kernel, mesh=mesh)
-    bers = errs / codec.user_bits_len
+    """One sweep point of `concat_mc_counts`: mean, min and max BER over
+    n_trials (the aggregation of performance_plots_general.py:120-126)."""
+    c = concat_mc_counts(sparc_params, ldpc_params, lengths, ldpc_protected,
+                         decode_params, awgn_var, seed, n_trials, decoder,
+                         device=device, fwht_kernel=fwht_kernel,
+                         bp_kernel=bp_kernel, mesh=mesh)
+    bers = c["errs"] / (c["bits"] // c["frames"])
     return {"ber": float(np.mean(bers)), "ber_min": float(np.min(bers)),
             "ber_max": float(np.max(bers)),
-            "frame_errs": int(np.sum(errs > 0)), "frames": int(n_trials),
-            "bit_errs": int(np.sum(errs)),
-            "bits": int(n_trials * codec.user_bits_len)}
+            "frame_errs": c["frame_errs"], "frames": c["frames"],
+            "bit_errs": c["bit_errs"], "bits": c["bits"]}
 
 
 # --------------------------------------------------------------------------

@@ -18,11 +18,28 @@ Spans (`parallel/montecarlo.py::sparc_mc_counts`, one point):
     mc.decode    each design's `decode_batch`                 n_designs
     mc.count     each design's error counts, and the read     n_designs + 1
 
+The concatenated point (`parallel/montecarlo.py::concat_mc_counts`) takes
+each `mc.*` span once: the designs' build, upload and per-trial gather;
+the bits; the LDPC encode and A beta0; the noise; the one `decode_soft`;
+the counts and the one read. Inside its decode (`models/concat.py`):
+
+    concat.amp       each AMP step: the two products, the residual, the
+                     Onsager term                             t_max
+    concat.eta       the integrated decoder's denoiser: MMSE, bits, inner
+                     BP, sections, the Onsager derivative     t_max - 1
+    concat.bp_final  the last step's MMSE, bits and hard BP   1
+
 Counters:
 
     amp.row_iters       rows each AMP iteration computes (`amp_decode`)
     amp.live_row_iters  of those, the rows still running: the sum of the
                         decodes' t_final (`sparc_mc_counts`)
+    concat.iters        steps of the integrated decoder's loop, the last
+                        one included: t_max a decode
+    concat.decodes      integrated decodes (one `decode_soft` call each)
+    concat.bp_codeword_iters  BP iterations of every codeword of the
+                        point's decodes, from the `bp_iters` that
+                        `concat_mc_counts` reads back (this rank's rows)
     k1.launches .. k4.launches   launches of the hand-written kernels
                         (`ops/wht_cuda.py` K1 and K2, `ops/denoiser_cuda.py`
                         K3, `ops/bp_cuda.py` K4)

@@ -69,6 +69,7 @@ def _world4(y_conv):
         "dft": tmc.sparc_mc_counts(n_trials=8, mesh=m41, **DFT),
         "concat": tmc.concat_mc_trial_errors(*_concat(), decoder="naive", mesh=m41),
         "concat_point": tmc.concat_ber_point(*_concat(), decoder="naive", mesh=m41),
+        "concat_counts": tmc.concat_mc_counts(*_concat(), decoder="integrated", mesh=m41),
         "blocks": [tmc._ldpc_block_counts(code, 3.0, 0, 0, b, 60, "sumprod2", mesh=m)
                    for m in (m41, m22) for b in (16, 18)],
         "campaign": [tmc.ldpc_waterfall_campaign(LDPC, mesh=m, **CAMPAIGN)
@@ -107,6 +108,8 @@ def world4():
         for k in ("mc", "mc_pad", "dft", "blocks", "campaign", "sharded", "mod"):
             assert o[k] == outs[0][k], k
         np.testing.assert_array_equal(o["concat"], outs[0]["concat"])
+        for k in ("errs", "bp_iters", "tau_sqr"):
+            np.testing.assert_array_equal(o["concat_counts"][k], outs[0]["concat_counts"][k])
     return {**outs[0], "conv": (y, beta, t)}
 
 
@@ -149,6 +152,17 @@ def test_concat_mc_per_trial_errors(world4):
     pt = world4["concat_point"]
     assert pt == tmc.concat_ber_point(*_concat(), decoder="naive", device="cpu")
     assert pt["bit_errs"] == int(want.sum()) and pt["frames"] == 6
+
+
+def test_concat_mc_counts_over_the_mesh(world4):
+    """Each trial's errors, BP iterations and tau^2 trajectory come back on
+    every rank, summed over 'dp', equal to one process's."""
+    want = tmc.concat_mc_counts(*_concat(), decoder="integrated", device="cpu")
+    got = world4["concat_counts"]
+    assert got.keys() == want.keys() and got["frames"] == 6
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v)
+    assert got["tau_sqr"].shape == (6, 8) and (got["tau_sqr"] > 0).all()
 
 
 def test_ldpc_block_counts_and_campaign(world4):
