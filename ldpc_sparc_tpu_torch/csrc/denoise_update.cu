@@ -64,6 +64,15 @@
 // The per-entry operations are those of the register kernel on every
 // route, so s is bit-equal to the plain version and only the order of the
 // three reductions differs.
+//
+// The AMP loop's freeze (optional, every route): given a (B,) mask of the
+// codewords that have stopped and the last s, a block whose codeword has
+// stopped copies beta to beta_new and the last s to s, and sums the squares
+// of beta in the thread order and reduction of a live step, so its energy
+// is the one the step that wrote beta computed. A stopped section moves the
+// same 16 bytes an entry as a live one (beta and the last s read, s and
+// beta_new written) and skips azo, the exps and two reductions. All blocks
+// of a section, and of a cluster, take the same branch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -82,6 +91,20 @@ struct MaxOp {
 struct SumOp {
   __device__ float operator()(float a, float b) const { return a + b; }
   __device__ static float identity() { return 0.0f; }
+};
+
+// The freeze's arguments: stopped[b] != 0 for a codeword that has stopped
+// (none when stopped is null), s_prev its last s, row_sections sections a
+// codeword. Section indices fit 31 bits (ldpc_denoise_update checks).
+struct Freeze {
+  const unsigned char* stopped;
+  const float* s_prev;
+  unsigned row_sections;
+
+  __device__ bool stopped_row(long long sec) const {
+    return stopped != nullptr &&
+           stopped[static_cast<unsigned>(sec) / row_sections] != 0;
+  }
 };
 
 // All-reduce over the block; blockDim.x is a multiple of 32, at most 1024.
@@ -109,10 +132,24 @@ denoise_update_kernel(const float* __restrict__ beta,
                       const float* __restrict__ azo,
                       const float* __restrict__ tau,
                       float* __restrict__ s_out, float* __restrict__ beta_out,
-                      float* __restrict__ sec_en) {
+                      float* __restrict__ sec_en, Freeze fr) {
   __shared__ float red[32];
   const long long sec = blockIdx.x;
   const long long off = sec * VEC * blockDim.x + threadIdx.x;
+  if (fr.stopped_row(sec)) {
+    float en = 0.0f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const long long i = off + j * blockDim.x;
+      const float p = beta[i];
+      s_out[i] = fr.s_prev[i];
+      beta_out[i] = p;
+      en += p * p;
+    }
+    en = block_allreduce<SumOp>(en, red);
+    if (threadIdx.x == 0) sec_en[sec] = en;
+    return;
+  }
   const float t = tau[sec];
   float v[VEC];
   float m = neg_inf();
@@ -147,6 +184,23 @@ denoise_update_kernel(const float* __restrict__ beta,
 constexpr int kLongThreads = 1024;
 constexpr int kLongSmemMax = 1 << 15;   // entries of a section kept in shared memory
 
+// A stopped section's walk over its n4 float4 pieces (piece threadIdx.x +
+// 1024 j, as a live walk takes them): beta and the last s copied through,
+// and the thread's partial of the energy, summed piece by piece as the live
+// walk sums it.
+__device__ float copy_through(const float4* __restrict__ b4,
+                              const float4* __restrict__ sp4, float4* s4,
+                              float4* __restrict__ p4, int n4) {
+  float en = 0.0f;
+  for (int i = threadIdx.x; i < n4; i += kLongThreads) {
+    const float4 p = b4[i];
+    s4[i] = sp4[i];
+    p4[i] = p;
+    en += p.x * p.x + p.y * p.y + p.z * p.z + p.w * p.w;
+  }
+  return en;
+}
+
 // One block of kLongThreads per section of M >= 8192 entries; each thread
 // takes float4 pieces 4 * threadIdx.x + 4096 j, so every load and store is
 // coalesced. IN_SMEM: the section's logits, then exps, wait in shared
@@ -158,7 +212,7 @@ denoise_update_long_kernel(const float* __restrict__ beta,
                            const float* __restrict__ azo,
                            const float* __restrict__ tau, float* s_out,
                            float* __restrict__ beta_out,
-                           float* __restrict__ sec_en, int M) {
+                           float* __restrict__ sec_en, int M, Freeze fr) {
   extern __shared__ float4 held[];
   __shared__ float red[32];
   const long long base = static_cast<long long>(blockIdx.x) * M;
@@ -167,6 +221,13 @@ denoise_update_long_kernel(const float* __restrict__ beta,
   float4* s4 = reinterpret_cast<float4*>(s_out + base);
   float4* p4 = reinterpret_cast<float4*>(beta_out + base);
   const int n4 = M / 4;
+  if (fr.stopped_row(blockIdx.x)) {
+    float en = copy_through(b4, reinterpret_cast<const float4*>(fr.s_prev + base),
+                            s4, p4, n4);
+    en = block_allreduce<SumOp>(en, red);
+    if (threadIdx.x == 0) sec_en[blockIdx.x] = en;
+    return;
+  }
   const float t = tau[blockIdx.x];
   float m = neg_inf();
   for (int i = threadIdx.x; i < n4; i += kLongThreads) {
@@ -258,7 +319,7 @@ denoise_update_cluster_kernel(const float* __restrict__ beta,
                               const float* __restrict__ azo,
                               const float* __restrict__ tau, float* s_out,
                               float* __restrict__ beta_out,
-                              float* __restrict__ sec_en, int log_c) {
+                              float* __restrict__ sec_en, int log_c, Freeze fr) {
   constexpr int kHeldLog = LOG_SHARE < kHeldMaxLog ? LOG_SHARE : kHeldMaxLog;
   constexpr int kPieces = (1 << LOG_SHARE) / 4 / kLongThreads;   // 4 to 64
   constexpr int kHeld = (1 << kHeldLog) / 4 / kLongThreads;      // 4 or 8
@@ -277,8 +338,17 @@ denoise_update_cluster_kernel(const float* __restrict__ beta,
   const float4* a4 = reinterpret_cast<const float4*>(azo + base);
   float4* s4 = reinterpret_cast<float4*>(s_out + base);
   float4* p4 = reinterpret_cast<float4*>(beta_out + base);
-  const float t = tau[sec];
   const int t0 = static_cast<int>(threadIdx.x);
+  if (fr.stopped_row(sec)) {
+    float en = copy_through(b4, reinterpret_cast<const float4*>(fr.s_prev + base),
+                            s4, p4, kPieces * kLongThreads);
+    en = block_allreduce<SumOp>(en, red);
+    cluster_wait();   // every block of the cluster runs: its slots may be written
+    en = cluster_combine<SumOp>(cluster, en, part_en, c, C);
+    if (c == 0 && t0 == 0) sec_en[sec] = en;
+    return;
+  }
+  const float t = tau[sec];
   float m = neg_inf();
 #pragma unroll 4
   for (int j = 0; j < kPieces; ++j) {
@@ -338,7 +408,7 @@ denoise_update_cluster_kernel(const float* __restrict__ beta,
 template <int LOG_SHARE>
 cudaError_t launch_cluster(const float* beta, const float* azo, const float* tau,
                            float* s, float* beta_new, float* sec_en,
-                           long long sections, int log_c, cudaStream_t st) {
+                           long long sections, int log_c, Freeze fr, cudaStream_t st) {
   auto kernel = denoise_update_cluster_kernel<LOG_SHARE>;
   constexpr int smem = (1 << (LOG_SHARE < kHeldMaxLog ? LOG_SHARE : kHeldMaxLog)) *
                        static_cast<int>(sizeof(float));
@@ -363,7 +433,7 @@ cudaError_t launch_cluster(const float* beta, const float* azo, const float* tau
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, beta, azo, tau, s, beta_new, sec_en,
-                            log_c);
+                            log_c, fr);
 }
 
 enum Route { kRouteAuto = 0, kRouteBlock = 1, kRouteCluster = 2 };
@@ -372,18 +442,27 @@ enum Route { kRouteAuto = 0, kRouteBlock = 1, kRouteCluster = 2 };
 
 // beta, azo, s, beta_new: (sections, M) float32; tau, sec_en: (sections,).
 // route: 0 the default for M (registers to 4096, block to 2^15, cluster
-// from 2^16), 1 registers or block, 2 cluster (M >= 2^16 only). Returns
-// cudaGetLastError() after the launch (0 on success).
+// from 2^16), 1 registers or block, 2 cluster (M >= 2^16 only). stopped:
+// null (every section live), or (sections / row_sections,) bytes, nonzero
+// where a codeword has stopped, whose s is then s_prev's (sections, M)
+// and beta_new beta. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int ldpc_denoise_update(const float* beta, const float* azo,
                                    const float* tau, float* s, float* beta_new,
                                    float* sec_en, long long sections, int M,
-                                   int route, void* stream) {
+                                   int route, const unsigned char* stopped,
+                                   const float* s_prev, long long row_sections,
+                                   void* stream) {
   cudaGetLastError();  // clear a stale error of an earlier call
   if (sections <= 0 || sections > 0x7FFFFFFF || M < 32 || M > (1 << 22) ||
       (M & (M - 1)) != 0 || route < kRouteAuto || route > kRouteCluster ||
-      (route == kRouteCluster && M < kClusterMinM)) {
+      (route == kRouteCluster && M < kClusterMinM) ||
+      (stopped != nullptr && (s_prev == nullptr || row_sections <= 0 ||
+                              sections % row_sections != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Freeze fr{stopped, s_prev,
+                  static_cast<unsigned>(row_sections > 0 ? row_sections : 1)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(sections);
   if (M >= kClusterMinM && route != kRouteBlock) {
@@ -396,11 +475,11 @@ extern "C" int ldpc_denoise_update(const float* beta, const float* azo,
     }
     cudaError_t err;
     switch (log_m - log_c) {
-      case 14: err = launch_cluster<14>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, st); break;
-      case 15: err = launch_cluster<15>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, st); break;
-      case 16: err = launch_cluster<16>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, st); break;
-      case 17: err = launch_cluster<17>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, st); break;
-      default: err = launch_cluster<18>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, st); break;
+      case 14: err = launch_cluster<14>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, fr, st); break;
+      case 15: err = launch_cluster<15>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, fr, st); break;
+      case 16: err = launch_cluster<16>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, fr, st); break;
+      case 17: err = launch_cluster<17>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, fr, st); break;
+      default: err = launch_cluster<18>(beta, azo, tau, s, beta_new, sec_en, sections, log_c, fr, st); break;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   } else if (M > 4096 && M <= kLongSmemMax) {
@@ -412,19 +491,19 @@ extern "C" int ldpc_denoise_update(const float* beta, const float* azo,
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     denoise_update_long_kernel<true><<<grid, kLongThreads, smem, st>>>(
-        beta, azo, tau, s, beta_new, sec_en, M);
+        beta, azo, tau, s, beta_new, sec_en, M, fr);
   } else if (M > kLongSmemMax) {
     denoise_update_long_kernel<false><<<grid, kLongThreads, 0, st>>>(
-        beta, azo, tau, s, beta_new, sec_en, M);
+        beta, azo, tau, s, beta_new, sec_en, M, fr);
   } else if (M >= 128) {
     denoise_update_kernel<4><<<grid, M / 4, 0, st>>>(beta, azo, tau, s,
-                                                     beta_new, sec_en);
+                                                     beta_new, sec_en, fr);
   } else if (M == 64) {
     denoise_update_kernel<2><<<grid, 32, 0, st>>>(beta, azo, tau, s, beta_new,
-                                                  sec_en);
+                                                  sec_en, fr);
   } else {
     denoise_update_kernel<1><<<grid, 32, 0, st>>>(beta, azo, tau, s, beta_new,
-                                                  sec_en);
+                                                  sec_en, fr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@ K-PSK modulated (K = 2, 4, 8, ...), with the SRHT design engine or, for
 complex plain codes, the DFT engine. The JAX decoder vmaps a `lax.scan`;
 here the batch of codewords is a leading dimension and the iterations are a
 Python loop of t_max - 1 steps. A codeword that has converged is frozen
-row by row with `torch.where`, exactly as the JAX decoder freezes its
-state, so the outputs do not depend on what else is in the batch. The
+row by row, exactly as the JAX decoder freezes its state, so the outputs do
+not depend on what else is in the batch: with `torch.where`, and on the
+fused path K3 copies a stopped row's beta and s through itself. The
 decoder's state takes y's type: complex64 for complex y, else float32.
 
 Kernels on the path (both run when the tensors are on a card, and their
@@ -116,7 +117,9 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
         psi_c = 1 - sum|beta_c|^2 / (L/Lc)
     for t_max - 1 iterations, with per-codeword freezing once psi stops
     moving (allclose with rtol and atol = 2 * float32 resolution), then a
-    MAP hard decision on s. The first iteration skips A @ 0.
+    MAP hard decision on s. The first iteration skips A @ 0. On the fused
+    path the freeze of beta and s is K3's: it reads one pair of buffers,
+    writes the other, copying stopped rows through, and the pairs swap.
 
     fused_denoiser: None takes the fused tail (`fused_denoise_update`)
     whenever `fused_eligible` holds, True demands it, False takes the
@@ -164,6 +167,8 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     stopped = torch.zeros(B, dtype=torch.bool, device=y.device)
     t_final = torch.zeros(B, dtype=torch.int64, device=y.device)
     nmse = [torch.ones_like(psi)]
+    if fused:   # the buffers K3 writes s and beta into, swapped with s and beta
+        spare = (torch.empty_like(s), torch.empty_like(beta))
 
     for t in range(decode.t_max - 1):
         count("amp.row_iters", B)
@@ -184,7 +189,8 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
         azo = design.az((zb / ph).reshape(B, n), fwht_kernel, fwht_mode)
         if fused:
             tau_sec = tau.repeat_interleave(sec_per_col, dim=1)        # (B, L)
-            s_new, beta_new, sec_en = fused_denoise_update(beta, azo, tau_sec, M)
+            s_new, beta_new, sec_en = fused_denoise_update(
+                beta, azo, tau_sec, M, stopped=stopped, s_prev=s, out=spare)
             psi_new = 1.0 - sec_en.reshape(B, Lc, sec_per_col).sum(-1) / sec_per_col
         else:
             tc = tau[:, :, None]
@@ -192,14 +198,19 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
             beta_new = mmse_denoise(s_new, 1.0 / tc, M, K).reshape(B, LM).to(cdtype)
             s_new = s_new.reshape(B, LM)
             psi_new = 1.0 - _abs2(beta_new.reshape(B, Lc, Mc)).sum(-1) / sec_per_col
+        del azo   # one azo at a time: the next az allocates its own
 
         converged = (t > 0) & ((psi_new - psi).abs()
                                <= atol + decode.rtol * psi.abs()).all(-1)
         # freeze the codewords that had stopped before this iteration
         keep = stopped[:, None]
-        beta = torch.where(keep, beta, beta_new)
+        if fused:   # K3 froze beta and s
+            spare = (s, beta)
+            beta, s = beta_new, s_new
+        else:
+            beta = torch.where(keep, beta, beta_new)
+            s = torch.where(keep, s, s_new)
         z = torch.where(keep, z, z_new)
-        s = torch.where(keep, s, s_new)
         phi = torch.where(keep, phi, phi_new)
         psi = torch.where(keep, psi, psi_new)
         t_final = torch.where(stopped, t_final, t + 1)
@@ -211,6 +222,8 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
         else:
             nmse.append(psi)
 
+    if fused:
+        del spare   # the MAP decision's buffers take its room
     beta_map = map_estimate(s, M, K)
     return AmpResult(beta=beta_map.reshape(batch + (LM,)),
                      beta_mmse=beta.reshape(batch + (LM,)),

@@ -12,8 +12,13 @@ every entry of a long section is held), and a second run bit-equal to the
 first; then every route and the plain version timed by CUDA events on the
 same inputs, in turns, beside the least the card could take for the bytes
 (beta and azo read, s and beta_new written, tau and the energies once) at
-3.35 TB/s and each route's share of it. With --out the numbers are also
-written as JSON. Needs a CUDA device.
+3.35 TB/s and each route's share of it. Then the AMP loop's freeze at
+(256, 1024, 512), the flagship's step: the call with `stopped` on 0 %,
+67 % and 100 % of the rows (a stopped row reads beta and the last s and
+writes s and beta_new, the same 16 bytes an entry as a live one), checked
+against the call without it and timed in turns beside it and the same
+bound. With --out the numbers are also written as JSON. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -28,18 +33,29 @@ import torch
 from .ops import denoiser_cuda
 from .time_fwht import HBM_BYTES_PER_S, cuda_ms
 
+FREEZE_SHAPE, FREEZE_SHARES = (256, 1024, 512), (0, 67, 100)
 SHAPES = ((256, 64, 1 << 13), (64, 32, 1 << 14), (32, 16, 1 << 15),
           (16, 16, 1 << 16), (8, 8, 1 << 17), (4, 4, 1 << 19), (4, 8, 1 << 20),
           (1, 4, 1 << 22))
 
 
-def run_shape(B: int, L: int, M: int, reps: int) -> dict:
+def _inputs(B: int, L: int, M: int):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(M)
     beta = torch.softmax(3 * torch.randn(B, L, M, generator=gen, device=dev),
                          -1).reshape(B, -1)
     azo = 2 * torch.randn(B, L * M, generator=gen, device=dev)
     tau = 0.5 + 1.5 * torch.rand(B, L, generator=gen, device=dev)
+    return gen, beta, azo, tau
+
+
+def bound_ms(B: int, L: int, M: int) -> float:
+    """The least time by bytes: 16 an entry, 8 a section, at HBM bandwidth."""
+    return 1e3 * 4 * (4 * B * L * M + 2 * B * L) / HBM_BYTES_PER_S
+
+
+def run_shape(B: int, L: int, M: int, reps: int) -> dict:
+    _, beta, azo, tau = _inputs(B, L, M)
     routes = [r for r in denoiser_cuda.ROUTES
               if r == "block" or M >= denoiser_cuda.CLUSTER_MIN_M]
     want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
@@ -58,8 +74,7 @@ def run_shape(B: int, L: int, M: int, reps: int) -> dict:
                       for g, w in zip(got[1:], want[1:])]
         del got, again
     del want
-    n = B * L * M
-    bound = 1e3 * 4 * (4 * n + 2 * B * L) / HBM_BYTES_PER_S
+    bound = bound_ms(B, L, M)
     ms = {r: float("inf") for r in routes}
     for turn in (routes, routes[::-1]):   # in turns: a, b, b, a
         for r in turn:
@@ -79,6 +94,45 @@ def run_shape(B: int, L: int, M: int, reps: int) -> dict:
     return out
 
 
+def run_freeze(B: int, L: int, M: int, reps: int) -> dict:
+    """The call with `stopped` on each share of FREEZE_SHARES of the rows
+    against the call without it: live rows bit-equal, stopped rows copied;
+    then all timed in turns, writing into the same two buffers."""
+    gen, beta, azo, tau = _inputs(B, L, M)
+    s_prev = torch.randn(B, L * M, generator=gen, device=beta.device)
+    out = (torch.empty_like(beta), torch.empty_like(beta))
+    want = denoiser_cuda.fused_denoise_update(beta, azo, tau, M)
+    masks = {}
+    for share in FREEZE_SHARES:
+        stopped = torch.zeros(B, dtype=torch.bool, device=beta.device)
+        stopped[torch.randperm(B, generator=gen, device=beta.device)[:round(B * share / 100)]] = True
+        got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M, stopped=stopped,
+                                                 s_prev=s_prev, out=out)
+        live = ~stopped
+        if not (all(torch.equal(g[live], w[live]) for g, w in zip(got, want))
+                and torch.equal(got[0][stopped], s_prev[stopped])
+                and torch.equal(got[1][stopped], beta[stopped])):
+            raise AssertionError(f"K3 with {share} % of the rows stopped: not the "
+                                 "unmasked call's live rows and the stopped rows' copy")
+        masks[share] = stopped
+    del want, got
+    calls = {"none": lambda: denoiser_cuda.fused_denoise_update(beta, azo, tau, M, out=out)}
+    for share, stopped in masks.items():
+        calls[f"{share}%"] = (lambda st: lambda: denoiser_cuda.fused_denoise_update(
+            beta, azo, tau, M, stopped=st, s_prev=s_prev, out=out))(stopped)
+    ms = {k: float("inf") for k in calls}
+    for turn in (list(calls), list(calls)[::-1]):
+        for k in turn:
+            ms[k] = min(ms[k], cuda_ms(calls[k], reps))
+    bound = bound_ms(B, L, M)
+    res = {"shape": [B, L, M], "bound_ms": bound,
+            "stopped": {k: {"ms": v, "share": bound / v} for k, v in ms.items()}}
+    print(f"freeze ({B}, {L}, 2^{M.bit_length() - 1}), rows stopped: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms ({100 * v['share']:.1f} % of the bound)"
+        for k, v in res["stopped"].items()) + f"; bound {bound:.4f} ms by bytes", flush=True)
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shape", type=int, nargs=3, action="append", default=None,
@@ -93,7 +147,8 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     result = {"card": card,
-              "shapes": [run_shape(B, L, M, args.reps) for B, L, M in args.shape or SHAPES]}
+              "shapes": [run_shape(B, L, M, args.reps) for B, L, M in args.shape or SHAPES],
+              "freeze": run_freeze(*FREEZE_SHAPE, args.reps)}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -43,6 +43,10 @@ Counters:
     k1.launches .. k4.launches   launches of the hand-written kernels
                         (`ops/wht_cuda.py` K1 and K2, `ops/denoiser_cuda.py`
                         K3, `ops/bp_cuda.py` K4)
+    k3.freeze_launches  of K3's launches, those that took the AMP loop's
+                        `stopped` mask (`ops/denoiser_cuda.py`): every
+                        launch of a fused `amp_decode`; the rows they
+                        copied through are amp.row_iters - amp.live_row_iters
     k1.block_products   of K1's launches, the design products that took the
                         block-indexed route (`ops/wht_cuda.py`): the window
                         side selected or summed by block index, one a

@@ -17,6 +17,8 @@ from ldpc_sparc_tpu_torch.ops import denoiser as tden
 from ldpc_sparc_tpu_torch.ops import denoiser_cuda
 from ldpc_sparc_tpu_torch.utils.tracing import counters
 
+from freeze_checks import check_freeze_step
+
 
 def _inputs(L, M, seed):
     rng = np.random.default_rng(seed)
@@ -131,3 +133,81 @@ def test_cpu_tensors_never_launch():
     denoiser_cuda.fused_denoise_update(beta, azo, tau, 32)
     assert counters()["k3.launches"] == before
 
+
+
+# ---- the AMP loop's freeze inside the fused tail (`stopped`, `s_prev`, `out`) ----
+
+@pytest.mark.parametrize("mask", ["none", "some", "all"])
+def test_fused_ref_freeze_copies_stopped_rows(mask):
+    """Stopped rows keep beta and s bit for bit and their energies sum beta's
+    squares, the step's own energies where that step wrote beta; live rows
+    equal the call without a mask."""
+    B, L, M = 5, 4, 64
+    stopped = torch.tensor({"none": [0] * B, "some": [0, 1, 1, 0, 1],
+                            "all": [1] * B}[mask], dtype=torch.bool)
+    check_freeze_step("cpu", B, L, M, stopped=stopped)
+    beta, azo, tau = (torch.as_tensor(np.stack(a))
+                      for a in zip(*[_inputs(L, M, k) for k in range(B)]))
+    s_prev = torch.randn(B, L * M, generator=torch.Generator().manual_seed(1))
+    s, p, en = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M, stopped, s_prev)
+    live = ~stopped
+    want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
+    assert all(torch.equal(g[live], w[live]) for g, w in zip((s, p, en), want))
+    assert torch.equal(s[stopped], s_prev[stopped]) and torch.equal(p[stopped], beta[stopped])
+    assert torch.equal(en[stopped], (beta[stopped].reshape(-1, L, M) ** 2).sum(-1))
+
+
+def test_fused_freeze_writes_out():
+    L, M = 2, 32
+    beta, azo, tau = (torch.as_tensor(a) for a in _inputs(L, M, 3))
+    out = (torch.full_like(beta, 7.0), torch.full_like(beta, 7.0))
+    got = denoiser_cuda.fused_denoise_update(beta, azo, tau, M, stopped=torch.tensor(False),
+                                             s_prev=torch.zeros_like(beta), out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    want = denoiser_cuda.fused_denoise_update_ref(beta, azo, tau, M)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _freeze_args(case):
+    z, st = torch.zeros(2, 64), torch.zeros(2, dtype=torch.bool)
+    return {"stopped alone": dict(stopped=st),
+            "s_prev alone": dict(s_prev=z),
+            "stopped not bool": dict(stopped=st.float(), s_prev=z),
+            "stopped a row short": dict(stopped=st[:1], s_prev=z),
+            "s_prev misshapen": dict(stopped=st, s_prev=z[:, :32]),
+            "one out buffer": dict(out=(z,)),
+            "out misshapen": dict(out=(z, z[:1]))}[case]
+
+
+@pytest.mark.parametrize("case", ["stopped alone", "s_prev alone", "stopped not bool",
+                                  "stopped a row short", "s_prev misshapen",
+                                  "one out buffer", "out misshapen"])
+def test_freeze_argument_checks(case):
+    """Checked on every device, before the CPU's plain version runs."""
+    z = torch.zeros(2, 64)
+    with pytest.raises(ValueError):
+        denoiser_cuda.fused_denoise_update(z, z, torch.ones(2, 2), 32, **_freeze_args(case))
+
+
+def test_kernel_freeze_argument_checks():
+    """The card's own checks, on CPU tensors: out apart from what the step
+    reads and from each other, everything contiguous."""
+    z, st = torch.zeros(2, 64), torch.zeros(2, dtype=torch.bool)
+    tau, a, b = torch.zeros(2, 2), torch.zeros(2, 64), torch.zeros(2, 64)
+    denoiser_cuda._check(z, z, tau, 32, st, a, (b, torch.zeros(2, 64)))
+    for out in ((z, b), (b, b), (a, b), (b, z)):
+        with pytest.raises(ValueError, match="apart"):
+            denoiser_cuda._check(z, torch.zeros(2, 64), tau, 32, st, a, out)
+    with pytest.raises(ValueError):
+        denoiser_cuda._check(z, z, tau, 32, st, a, (b, torch.zeros(64, 2).T))
+    with pytest.raises(ValueError):
+        denoiser_cuda._check(z, z, tau, 32, torch.zeros(4, dtype=torch.bool)[::2], a)
+
+
+def test_cpu_freeze_never_counts():
+    before = counters()
+    beta, azo, tau = (torch.as_tensor(a) for a in _inputs(2, 32, 1))
+    denoiser_cuda.fused_denoise_update(beta, azo, tau, 32, stopped=torch.tensor(True),
+                                       s_prev=azo.clone())
+    after = counters()
+    assert [after[k] - before[k] for k in ("k3.launches", "k3.freeze_launches")] == [0, 0]

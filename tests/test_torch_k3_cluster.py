@@ -13,13 +13,16 @@ tau azo rounded twice, s / tau, exp, e / z), so s is bit-equal to
 `fused_denoise_update_ref`, and beta_new and the energies are held at the
 tolerances chip_smoke.py's phase 21 states (rtol 1e-5, atol 1e-12, far
 below a softmax entry of 2^20). On the card tests/test_torch_kernels.py
-holds the kernel itself to the same bounds.
+holds the kernel itself to the same bounds, and the card test at the end of
+this file holds its freeze (a stopped codeword's beta and s copied through).
 """
 
 import pytest
 import torch
 
 from ldpc_sparc_tpu_torch.ops import denoiser_cuda
+
+from freeze_checks import check_freeze_step
 
 THREADS, LANES = 1024, 32
 
@@ -152,3 +155,17 @@ def test_the_wrapper_checks_the_route_before_the_device():
     for route in (None, "block"):
         got = denoiser_cuda.fused_denoise_update(beta, azo, tau, 1 << 13, route)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,B,L", [(1 << 16, 4, 3), (1 << 20, 3, 1)], ids=lambda v: str(v))
+def test_cluster_route_freeze_copies_stopped_rows(M, B, L):
+    """The mask on the cluster route (C = 4 shares of 2^14 held; C = 16
+    shares of 2^16, half re-read): live rows bit-equal to the unmasked
+    kernel, stopped rows' beta and s copied and their energies, combined in
+    rank order, those of the step that wrote beta."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    check_freeze_step(dev, B, L, M, "cluster")
+    torch.cuda.synchronize()

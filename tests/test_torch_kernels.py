@@ -38,6 +38,8 @@ from ldpc_sparc_tpu_torch.ops.bp import TannerGraph
 from ldpc_sparc_tpu_torch.utils import bits as bitops
 from ldpc_sparc_tpu_torch.utils.tracing import counters, reset
 
+from freeze_checks import check_freeze_step, where_freeze_decode
+
 
 def _card():
     if not torch.cuda.is_available():
@@ -276,6 +278,50 @@ def test_cluster_route_matches_plain_and_repeats_its_bits(M, B, L):
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,B,L,route,mask", [
+    (512, 5, 16, None, "some"), (512, 5, 16, None, "none"), (512, 5, 16, None, "all"),
+    (32, 4, 8, None, "some"), (64, 4, 8, None, "some"), (1 << 13, 4, 4, None, "some"),
+    (1 << 16, 3, 2, "block", "some")], ids=lambda v: str(v))
+def test_k3_freeze_copies_stopped_rows(M, B, L, route, mask):
+    """The mask on the register route (M 32 to 4096) and the long one (in
+    shared memory to 2^15, re-reading s above; the cluster route:
+    tests/test_torch_k3_cluster.py): live rows bit-equal to the unmasked
+    kernel, stopped rows' beta and s copied and their energies those of the
+    step that wrote beta, bit for bit; one freeze launch counted."""
+    dev = _card()
+    stopped = {"some": None, "none": torch.zeros(B, dtype=torch.bool, device=dev),
+               "all": torch.ones(B, dtype=torch.bool, device=dev)}[mask]
+    before = counters()
+    check_freeze_step(dev, B, L, M, route, stopped)
+    torch.cuda.synchronize()
+    after = counters()
+    assert [after[k] - before[k] for k in ("k3.launches", "k3.freeze_launches")] == [3, 1]
+
+
+@pytest.mark.cuda
+def test_amp_decode_freeze_on_the_card_matches_the_where_loop():
+    """K1 + K3 at L=64, M=64, 8 codewords that stop at different iterations,
+    some at the cap: every output of `amp_decode` (beta and s frozen inside
+    K3) equal bit for bit to the loop that froze them by `torch.where`, and
+    every K3 launch of the decode a freeze launch."""
+    dev = _card()
+    params, decode, awgn_var = SparcParams(P=15.0, R=1.2, L=64, M=64), DecodeParams(t_max=20), 2.5
+    design = SparcDesign.for_params(params, awgn_var, 3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bits = bitops.random_bits(gen, 8 * params.bit_len).reshape(8, -1)
+    beta0 = bitops.bits_to_msg_vector(bits, params.M)
+    y = sparc.awgn_channel(design.ab(beta0), awgn_var, gen)
+    reset("k3.launches", "k3.freeze_launches")
+    got = sparc.amp_decode(y, design, params, decode, awgn_var, beta0)
+    torch.cuda.synchronize()
+    assert counters()["k3.freeze_launches"] == counters()["k3.launches"] == decode.t_max - 1
+    want = where_freeze_decode(y, design, params, decode, awgn_var, beta0)
+    assert len(set(want[3].tolist())) > 2
+    assert all(torch.equal(g, w) for g, w in zip(
+        (got.beta, got.beta_mmse, got.s, got.t_final, got.nmse, got.psi), want))
 
 
 @pytest.mark.cuda

@@ -141,9 +141,9 @@ def test_amp_decode_through_k3_at_m8192_matches_jax_pallas():
     calls = []
     real = tsparc.fused_denoise_update
 
-    def counting(*a):
+    def counting(*a, **k):
         calls.append(a[-1])
-        return real(*a)
+        return real(*a, **k)
 
     tsparc.fused_denoise_update = counting
     try:

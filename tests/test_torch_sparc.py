@@ -29,7 +29,10 @@ from ldpc_sparc_tpu_torch import DecodeParams as TDecode
 from ldpc_sparc_tpu_torch.models import sparc as tsparc
 from ldpc_sparc_tpu_torch.ops import denoiser_cuda
 from ldpc_sparc_tpu_torch.parity import design_from_jax_leaves
+from ldpc_sparc_tpu_torch.utils import bits as bitops
 from ldpc_sparc_tpu_torch.utils.tracing import counters
+
+from freeze_checks import where_freeze_decode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -120,6 +123,39 @@ def test_decode_batch_equals_single_decodes(name):
                                 AWGN_VAR)
         assert torch.equal(beta[i], one.beta)
         assert int(t_final[i]) == int(one.t_final)
+
+
+# codes and channels at which a batch's rows stop at different iterations,
+# some only at the cap (t_max - 1)
+FREEZE_CODES = {
+    "plain": (dict(P=15.0, R=1.0, L=64, M=64), 2.5),
+    "plain_cap": (dict(P=15.0, R=1.2, L=64, M=64), 2.5),
+    "sc": (dict(P=15.0, R=1.0, L=128, M=32, spatially_coupled=True, omega=3,
+                Lambda=8), 1.0),
+    "sc_cap": (dict(P=15.0, R=1.2, L=128, M=32, spatially_coupled=True, omega=3,
+                    Lambda=8), 1.6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FREEZE_CODES))
+def test_fused_freeze_matches_the_where_loop(name):
+    """The fused path, whose freeze of beta and s is K3's (two pairs of
+    buffers, swapped each step), against the loop that froze them by
+    `torch.where`: every output equal bit for bit, with and without beta0."""
+    kw, awgn_var = FREEZE_CODES[name]
+    params, decode = TParams(**kw), TDecode(t_max=20)
+    design = tsparc.design_for_params(params, awgn_var, 3, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    bits = bitops.random_bits(gen, 8 * params.bit_len).reshape(8, -1)
+    beta0 = bitops.bits_to_msg_vector(bits, params.M)
+    y = tsparc.awgn_channel(design.ab(beta0), awgn_var, gen)
+    got = tsparc.amp_decode(y, design, params, decode, awgn_var, beta0)
+    want = where_freeze_decode(y, design, params, decode, awgn_var, beta0)
+    assert len(set(want[3].tolist())) > 2
+    assert all(torch.equal(g, w) for g, w in zip(
+        (got.beta, got.beta_mmse, got.s, got.t_final, got.nmse, got.psi), want))
+    beta, t_final = tsparc.decode_batch(y, design, params, decode, awgn_var)
+    assert torch.equal(beta, want[0]) and torch.equal(t_final, want[3])
 
 
 def test_sparc_sim_decodes_at_the_verify_point():
