@@ -1543,6 +1543,7 @@ def slice_f(dev, card):
     from ldpc_sparc_tpu_torch.parallel.mesh import make_mesh
     from ldpc_sparc_tpu_torch.parallel.montecarlo import sparc_mc_counts
     from ldpc_sparc_tpu_torch.parallel.sharded import make_sharded_sim_step
+    from ldpc_sparc_tpu_torch.utils import tracing
 
     # -- 17: K4 against the float64 C++ oracle ----------------------------------
     code = get_code(*ORACLE_CODE)
@@ -1692,15 +1693,17 @@ def slice_f(dev, card):
         step(seeds)
         torch.cuda.synchronize()
         zero_launches("k1", "k3")
+        tracing.reset("k3.freeze_launches")
         t0 = time.perf_counter()
         c11 = step(seeds)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        l_s = (n_launched("k1"), n_launched("k3"))
+        # the step decodes through amp_decode: every K3 launch takes the freeze
+        l_s = (n_launched("k1"), n_launched("k3"), tracing.counters()["k3.freeze_launches"])
         it = SC_T_MAX - 1
-        if l_s != (2 * it, it):
-            raise AssertionError(f"the sharded step launched (K1, K3) {l_s}, expected "
-                                 f"{(2 * it, it)}")
+        if l_s != (2 * it, it, it):
+            raise AssertionError(f"the sharded step launched (K1, K3, K3 with the "
+                                 f"freeze) {l_s}, expected {(2 * it, it, it)}")
         design = SparcDesign.for_params(sc, SC_AWGN, seed=SEED, device=dev)
         beta0, y = sc_inputs(design, sc, SC_BATCH, dev)
         bs, ts = step.decode(y)
@@ -1710,6 +1713,7 @@ def slice_f(dev, card):
                 int((ts - tu).abs().max()) > 1:
             raise AssertionError(f"sharded decode vs decode_batch: t_final "
                                  f"{ts.tolist()} vs {tu.tolist()}")
+        same = (int((ts == tu).sum()), int((bs == bu).all(-1).sum()))
         del y, beta0, bs, bu, step
     finally:
         dist.destroy_process_group()
@@ -1737,8 +1741,10 @@ def slice_f(dev, card):
               f"{l_c}) | section-sharded step, SC L={SC['L']} M={SC['M']} "
               f"omega={SC['omega']} Lambda={SC['Lambda']} R={SC['R']} t_max {SC_T_MAX}, "
               f"{SC_BATCH} codewords: (1,1) {c11}, step {step_s:.4f} s (design build "
-              f"{build_s:.2f} s), launches (K1, K3) {l_s}; decode(y) vs decode_batch: "
-              f"decisions equal on the {int(conv.sum())} converged, t_final within 1 | "
+              f"{build_s:.2f} s), launches (K1, K3, K3 with the freeze) {l_s}; "
+              f"decode(y) vs decode_batch: "
+              f"decisions equal on the {int(conv.sum())} converged, t_final within 1 "
+              f"(t_final, decisions equal on {same} of {SC_BATCH}) | "
               f"(1,2), two ranks on this card, {r12['backend']}: {r12['counts']}, equal; "
               f"step {r12['seconds']:.4f} s, rank 0's launches {r12['launches']} "
               f"({dt12:.1f} s with start-up)")

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import SparcParams, DecodeParams, create_base_matrix
-from ..device import resolve_device
+from ..device import all_reduce, resolve_device
 from ..ops.transforms import SparcDesign, design_class
 from ..ops.denoiser import mmse_denoise, map_estimate
 from ..ops.denoiser_cuda import fused_eligible, fused_denoise_update
@@ -38,6 +38,8 @@ from ..utils import rng as rngmod
 from ..utils.metrics import (bit_error_rate, location_value_errors,
                              section_errors)
 from ..utils.tracing import count
+
+MIN = torch.distributed.ReduceOp.MIN
 
 
 def design_for_params(params: SparcParams, awgn_var: float, seed,
@@ -103,7 +105,8 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
                decode: DecodeParams, awgn_var: float,
                beta0: Optional[torch.Tensor] = None, W=None,
                fused_denoiser: bool | None = None,
-               fwht_kernel: bool = True, fwht_mode: str = "ms") -> AmpResult:
+               fwht_kernel: bool = True, fwht_mode: str = "ms",
+               sec_group=None) -> AmpResult:
     """AMP decoding of SPARC codewords y (..., n), real or complex.
 
     Per iteration (unified 2-D base-matrix form, Lr x Lc blocks):
@@ -133,6 +136,14 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     nonzero blocks go through one batched transform. The state (beta, z, s)
     is complex64 for complex y, else float32; a K=1 denoiser's real
     estimate joins a complex state as complex.
+
+    sec_group: the process group of a 'sec' axis that shares out the column
+    blocks (`parallel/sharded.py`); None is one device. Given the group,
+    `design` and `W` are this rank's shard (its column blocks and their
+    columns of the base matrix), y is replicated, and three values are
+    summed over the group: W psi, A beta and the stop test, so that a
+    codeword stops when every section on every rank has settled. The
+    returned beta, s, nmse and psi are the shard's.
     """
     eligible = fused_eligible(params.M, params.K, y.is_complex())
     if fused_denoiser and not eligible:
@@ -146,8 +157,12 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
     L, M, K = params.L, params.M, params.K
     n, LM = design.n, design.LM
     Mr, Mc = n // Lr, LM // Lc
-    sec_per_col = L // Lc
+    sec_per_col = Mc // M
+    Lc_all = L // sec_per_col   # Lc over every rank of sec_group
     atol = 2 * float(np.finfo(np.float32).resolution)
+
+    def total(v):   # the sum of v over sec_group
+        return v if sec_group is None else all_reduce(v, sec_group)
 
     batch = y.shape[:-1]
     cdtype = torch.complex64 if y.is_complex() else torch.float32
@@ -172,12 +187,12 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
 
     for t in range(decode.t_max - 1):
         count("amp.row_iters", B)
-        gamma = (psi @ W.T) / Lc                                   # (B, Lr)
+        gamma = total(psi @ W.T) / Lc_all                          # (B, Lr)
         if t == 0:
             z_new = y
         else:
             zb, coef = per_row_block(z, gamma / phi)
-            z_new = (y - design.ab(beta, fwht_kernel, fwht_mode)
+            z_new = (y - total(design.ab(beta, fwht_kernel, fwht_mode))
                      + (coef * zb).reshape(B, n))
         if decode.phi_est_method == 1:
             phi_new = awgn_var + gamma
@@ -200,8 +215,11 @@ def amp_decode(y: torch.Tensor, design: SparcDesign, params: SparcParams,
             psi_new = 1.0 - _abs2(beta_new.reshape(B, Lc, Mc)).sum(-1) / sec_per_col
         del azo   # one azo at a time: the next az allocates its own
 
-        converged = (t > 0) & ((psi_new - psi).abs()
-                               <= atol + decode.rtol * psi.abs()).all(-1)
+        # every section has settled (rebound, so no extra tensor outlives the step)
+        converged = ((psi_new - psi).abs() <= atol + decode.rtol * psi.abs()).all(-1)
+        if sec_group is not None:   # and on every other rank of the group
+            converged = all_reduce(converged.int(), sec_group, MIN) > 0
+        converged = (t > 0) & converged
         # freeze the codewords that had stopped before this iteration
         keep = stopped[:, None]
         if fused:   # K3 froze beta and s

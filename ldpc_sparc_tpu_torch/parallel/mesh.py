@@ -105,20 +105,6 @@ def axis(mesh: DeviceMesh, name: str) -> tuple:
             mesh.get_group(name))
 
 
-def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of `t` over `group` (complex as its real view);
-    returns t. A card's tensor in a gloo group (several ranks on one card)
-    is staged through host memory, which is how gloo moves it anyway."""
-    v = torch.view_as_real(t) if t.is_complex() else t
-    if v.is_cuda and dist.get_backend(group) == "gloo":
-        host = v.cpu()
-        dist.all_reduce(host, op=op, group=group)
-        v.copy_(host)
-    else:
-        dist.all_reduce(v, op=op, group=group)
-    return t
-
-
 # --------------------------------------------------------------------------
 # spawning local ranks
 # --------------------------------------------------------------------------

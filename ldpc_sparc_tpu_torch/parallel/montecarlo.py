@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..config import ConcatLengths, DecodeParams, LdpcParams, SparcParams
-from ..device import resolve_device
+from ..device import all_reduce, resolve_device
 from ..models.concat import ConcatCodec, amp_steps
 from ..models.ldpc import LdpcCode, get_code
 from ..models.sparc import awgn_channel, decode_batch
@@ -65,7 +65,7 @@ from ..utils import bits as bitops
 from ..utils import rng as rngmod
 from ..utils import tracing
 from ..utils.metrics import location_value_errors
-from .mesh import all_reduce, axis, mesh_device
+from .mesh import axis, mesh_device
 
 
 def _share(n: int, mesh):

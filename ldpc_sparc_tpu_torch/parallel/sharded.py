@@ -13,16 +13,18 @@ of a ('dp', 'sec') mesh (`parallel/mesh.py`) shares out. Each rank of a
     are summed with one all_reduce over 'sec'
   * adjoint A^T z: from the replicated z alone, no communication
   * gamma = W psi / Lc: an all_reduce of the local W_loc psi_loc
-  * the stop test: an all_reduce(MAX) of the local deviation of psi
-    (|psi_new - psi| - (atol + rtol |psi|), maximised over the columns)
+  * the stop test: an all_reduce(MIN) of each codeword's flag "every
+    local section has settled"
 
-and the 'dp' axis shares out the trials. The message bits of global column
-block c of a trial with seed s come from `root_generator(derive(s, BITS,
-c))`, its noise from `root_generator(derive(s, CHANNEL))`, so a trial does
-not depend on the layout. Every base matrix with the same number of nonzero
-blocks in each column takes this path (spatial coupling: omega per column;
-plain and power-allocated codes: one), real or complex, K=1 or K-PSK; the
-fused denoiser tail K3 runs where `models.sparc.amp_decode` takes it.
+The iteration itself is `models.sparc.amp_decode`'s, given this rank's
+shard and its 'sec' group, so the stop rule, the freeze and the fused
+denoiser tail K3 are the unsharded decoder's. The 'dp' axis shares out the
+trials. The message bits of global column block c of a trial with seed s
+come from `root_generator(derive(s, BITS, c))`, its noise from
+`root_generator(derive(s, CHANNEL))`, so a trial does not depend on the
+layout. Every base matrix with the same number of nonzero blocks in each
+column takes this path (spatial coupling: omega per column; plain and
+power-allocated codes: one), real or complex, K=1 or K-PSK.
 
 `ShardedDesign` is the column-major view of the one `SparcDesign` of the
 seed: the same leaves, permuted so that each shard's blocks are
@@ -35,15 +37,12 @@ import numpy as np
 import torch
 
 from ..config import DecodeParams, SparcParams, create_base_matrix
-from ..models.sparc import awgn_channel
-from ..ops.denoiser import map_estimate, mmse_denoise
-from ..ops.denoiser_cuda import fused_denoise_update, fused_eligible
+from ..device import all_reduce
+from ..models.sparc import amp_decode, awgn_channel
 from ..ops.transforms import SparcDesign
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
-from .mesh import all_reduce, axis, mesh_device
-
-MAX = torch.distributed.ReduceOp.MAX
+from .mesh import axis, mesh_device
 
 
 class ShardedDesign:
@@ -121,7 +120,6 @@ class ShardedSimStep:
         self.W_loc = W[:, self.col0:self.col0 + self.Lc_loc].contiguous()
         self.cdtype = torch.complex64 if params.is_complex else torch.float32
         self.fwht_mode = fwht_mode
-        self.fused = fused_eligible(params.M, params.K, params.is_complex)
 
     def __call__(self, seeds):
         return self.run(seeds)
@@ -135,61 +133,6 @@ class ShardedSimStep:
         return all_reduce(self.local.ab(beta_loc, fwht_mode=self.fwht_mode),
                           self.sec_group)
 
-    def _amp(self, y: torch.Tensor):
-        """AMP on replicated y (B, n): (s (B, Lc_loc * Mc), t_final (B,))."""
-        p, d, sd = self.params, self.decode_params, self.sd
-        L, M, K = p.L, p.M, p.K
-        Lr, Lc, Mr, Mc, n = sd.Lr, sd.Lc, sd.Mr, sd.Mc, sd.n
-        lc, spc, W_loc = self.Lc_loc, self.sec_per_col, self.W_loc
-        atol = 2 * float(np.finfo(np.float32).resolution)
-        B, dev = y.shape[0], y.device
-        y = y.to(self.cdtype)
-        beta = torch.zeros(B, lc * Mc, dtype=self.cdtype, device=dev)
-        z = torch.zeros_like(y)
-        s = torch.zeros_like(beta)
-        phi = torch.ones(B, Lr, dtype=torch.float32, device=dev)
-        psi = torch.ones(B, lc, dtype=torch.float32, device=dev)
-        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
-        t_final = torch.zeros(B, dtype=torch.int64, device=dev)
-        for t in range(d.t_max - 1):
-            gamma = all_reduce(psi @ W_loc.T, self.sec_group) / Lc      # (B, Lr)
-            if t == 0:
-                z_new = y
-            else:
-                coef = (gamma / phi)[:, :, None]
-                z_new = y - self._ab(beta) + (coef * z.reshape(B, Lr, Mr)).reshape(B, n)
-            if d.phi_est_method == 1:
-                phi_new = self.awgn_var + gamma
-            else:
-                phi_new = (z_new.abs() ** 2).reshape(B, Lr, Mr).mean(-1)
-            tau = (L / Mr) / ((1.0 / phi_new) @ W_loc)                  # (B, lc)
-            azo = self.local.az((z_new.reshape(B, Lr, Mr) / phi_new[:, :, None])
-                                .reshape(B, n), fwht_mode=self.fwht_mode)
-            if self.fused:
-                s_new, beta_new, sec_en = fused_denoise_update(
-                    beta, azo, tau.repeat_interleave(spc, dim=1), M)
-                psi_new = 1.0 - sec_en.reshape(B, lc, spc).sum(-1) / spc
-            else:
-                tc = tau[:, :, None]
-                s_new = beta.reshape(B, lc, Mc) + tc * azo.reshape(B, lc, Mc)
-                beta_new = mmse_denoise(s_new, 1.0 / tc, M, K).reshape(B, lc * Mc) \
-                    .to(self.cdtype)
-                s_new = s_new.reshape(B, lc * Mc)
-                en = beta_new.reshape(B, lc, Mc)
-                en = en.abs() ** 2 if en.is_complex() else en ** 2
-                psi_new = 1.0 - en.sum(-1) / spc
-            dev_loc = ((psi_new - psi).abs() - (atol + d.rtol * psi.abs())).amax(-1)
-            converged = (t > 0) & (all_reduce(dev_loc, self.sec_group, MAX) <= 0)
-            keep = stopped[:, None]
-            beta = torch.where(keep, beta, beta_new)
-            z = torch.where(keep, z, z_new)
-            s = torch.where(keep, s, s_new)
-            phi = torch.where(keep, phi, phi_new)
-            psi = torch.where(keep, psi, psi_new)
-            t_final = torch.where(stopped, t_final, t + 1)
-            stopped = stopped | converged
-        return s, t_final
-
     def decode(self, y: torch.Tensor):
         p = self.params
         B = y.shape[0]
@@ -199,10 +142,12 @@ class ShardedSimStep:
         beta = torch.zeros(B, p.L * p.M, dtype=dtype, device=self.device)
         t_final = torch.zeros(B, dtype=torch.int64, device=self.device)
         if hi > lo:
-            s, t_loc = self._amp(y[lo:hi].to(self.device))
-            beta[lo:hi, c0:c1] = map_estimate(s, p.M, p.K)
+            res = amp_decode(y[lo:hi].to(self.device, self.cdtype), self.local, p,
+                             self.decode_params, self.awgn_var, W=self.W_loc,
+                             fwht_mode=self.fwht_mode, sec_group=self.sec_group)
+            beta[lo:hi, c0:c1] = res.beta
             if self.sec_rank == 0:
-                t_final[lo:hi] = t_loc
+                t_final[lo:hi] = res.t_final
         for group in (self.sec_group, self.dp_group):
             all_reduce(beta, group)
             all_reduce(t_final, group)
@@ -224,8 +169,10 @@ class ShardedSimStep:
             x = self._ab(beta0)
             y = torch.stack([awgn_channel(xi, self.awgn_var, rngmod.root_generator(
                 rngmod.derive(sd_, rngmod.CHANNEL), dev)) for xi, sd_ in zip(x, mine)])
-            s, t_final = self._amp(y)
-            beta_map = map_estimate(s, M, K)
+            res = amp_decode(y, self.local, p, self.decode_params, self.awgn_var,
+                             W=self.W_loc, fwht_mode=self.fwht_mode,
+                             sec_group=self.sec_group)
+            beta_map, t_final = res.beta, res.t_final
             bits_out = bitops.msg_vector_to_bits(beta_map.reshape(len(mine), lc, -1), M, K)
             be = all_reduce((bits != bits_out).sum((1, 2)), self.sec_group)
             se = all_reduce((beta_map != beta0).reshape(len(mine), -1, M).any(-1).sum(-1),

@@ -10,10 +10,15 @@ equal across (1,4), (4,1) and (2,2) (and (2,1), (1,2)); its `decode(y)`
 equal to the unsharded `decode_batch` on equal y, decisions and t_final,
 on the codewords where the unsharded decode converges. Two spawns (a world
 of four and one of two ranks, one torch thread each) run every mesh
-scenario once; the tests read their results. This module imports no JAX
+scenario once; the tests read their results. At (1,1), on a world of one
+in this process, the step decodes through `amp_decode` exactly as
+`decode_batch` does: every row's decisions and t_final equal, the rows at
+the cap included, for the plain, tall, power-allocated, SC, complex K=4
+and real K=2 codes under both phi_est_methods. This module imports no JAX
 at the top, since the ranks import it.
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -23,7 +28,7 @@ import torch
 
 from ldpc_sparc_tpu_torch import (DecodeParams, LdpcParams, SparcDesign, SparcParams,
                                   get_code, param_calc)
-from ldpc_sparc_tpu_torch.models.sparc import decode_batch
+from ldpc_sparc_tpu_torch.models.sparc import awgn_channel, decode_batch
 from ldpc_sparc_tpu_torch.parallel import montecarlo as tmc
 from ldpc_sparc_tpu_torch.parallel.mesh import make_mesh, run_ranks
 from ldpc_sparc_tpu_torch.parallel.sharded import ShardedDesign, make_sharded_sim_step
@@ -272,3 +277,45 @@ def test_launcher_two_processes():
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert out.stdout.strip().endswith("multi-process run OK")
     assert '"processes": 2' in out.stdout
+
+
+# the families the sharded step at (1,1) is held to `decode_batch` on, each
+# with the t_max at which its noise ladder leaves rows both stopped and at
+# the cap
+PA = SparcParams(P=15.0, R=1.6, L=64, M=16, power_allocated=True, B=16, R_PA_ratio=0.9)
+REAL_K2 = dataclasses.replace(SC, modulated=True, K=2)
+ONE = {"plain": (MC["params"], 30), "tall": (TALL, 20), "pa": (PA, 30), "sc": (SC, 30),
+       "sc_conv": (SC_CONV, 30), "mod": (MOD, 30), "real_k2": (REAL_K2, 30)}
+NOISE = torch.tensor([1.0, 1.0, 1.0, 2.0, 2.0, 3.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0])
+
+
+@pytest.fixture(scope="module")
+def mesh11():
+    """A world of one in this process, kept to the module's end: the tests
+    that take it come after `test_world_of_one_needs_no_launcher`, which
+    needs no group to exist."""
+    import torch.distributed as dist
+    mesh = make_mesh(device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("phi_est_method", (1, 2))
+@pytest.mark.parametrize("family", sorted(ONE))
+def test_world_of_one_step_decodes_as_decode_batch(mesh11, family, phi_est_method):
+    """At (1,1) the sharded step runs `amp_decode` on the whole design in
+    column-major block order: every row's decisions and t_final equal the
+    unsharded decode's, the rows that stop at the cap included."""
+    p, t_max = ONE[family]
+    dec = DecodeParams(t_max=t_max, phi_est_method=phi_est_method)
+    d = SparcDesign.for_params(p, 1.0, 3, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    bits = torch.randint(0, 2, (len(NOISE), p.bit_len), generator=gen).bool()
+    x = d.ab(bitops.bits_to_msg_vector(bits, p.M, p.K))
+    y = x + awgn_channel(torch.zeros_like(x), 1.0, gen) * NOISE[:, None]
+    beta, t = decode_batch(y, d, p, dec, 1.0)
+    assert 0 < int((t < t_max - 1).sum()) < len(NOISE), t
+    step, _ = make_sharded_sim_step(p, dec, 1.0, mesh11, seed=3)
+    got_beta, got_t = step.decode(y)
+    assert torch.equal(got_t, t), (got_t, t)
+    assert got_beta.dtype == beta.dtype and torch.equal(got_beta, beta)
