@@ -5,9 +5,12 @@ ensemble. Each nonzero base-matrix block (r, c) is a sqrt(W[r,c]/L)-scaled
 subsampled randomized Hadamard transform: a random, sorted index set on the
 smaller side of the block and a contiguous window [offset, offset + dim)
 with a random +-1 sign diagonal on the larger side. The host-side draw of
-that randomness (`generate_block_randomness`) is a numpy copy of the JAX
-package's that makes the same `rng` calls in the same order, so the two
-packages construct bit-identical designs from one seed.
+that randomness (`block_draws`, and `generate_block_randomness` with the
+signs made) is a numpy copy of the JAX package's that reads the same seeded
+stream in the same order, so the two packages construct bit-identical
+designs from one seed. Each block's signs are read as the stream's raw
+words (what `rng.integers(0, 2, large)` would take), and turned into +-1
+by `signs_from_words` wherever the design goes.
 
 FWHT routing in `srht_apply`: on a CUDA tensor every width-w transform goes
 through the hand-written kernel K1 (`ops/wht_cuda`). An offset-0 design
@@ -71,12 +74,23 @@ product serves a batch of D rows, row t through design t.
 subsampled-DFT ensemble, for complex plain codes (`engine="dft"`). Its
 products are `torch.fft.fft` calls, as the JAX package's are `jnp.fft`
 calls outside any Pallas kernel.
+
+A seeded design is made in two steps. `draw_for_params` (and
+`SparcDesign.draw`) draws it on the host, checks its index set there and
+returns a `HostDesign`: the tensor leaves (for an SRHT design the signs'
+words, half the bytes of the signs), pinned where they are bound for a
+card, and the static fields. Nothing of it touches a device, so any thread
+may draw. `HostDesign.upload` copies the leaves to the device with
+`non_blocking` on the current stream and makes the design there
+(`from_leaves`), without a host sync. `for_params` and `build` are the two
+steps in one.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -128,41 +142,127 @@ def window_block_route(device_type: str, fwht_kernel: bool, fwht_mode: str,
             and not identity)
 
 
-def segment_table(seg: tuple, num: int, device=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ptr (num + 1,), blocks (E,)) int32 on `device`, two views of one
-    upload: segment s holds the blocks e with seg[e] == s, ascending, as
-    blocks[ptr[s]:ptr[s + 1]]. Raises on a segment id outside [0, num)."""
+def _segment_array(seg: tuple, num: int) -> np.ndarray:
+    """`segment_table`'s (num + 1 + E,) int32 host array, ptr then blocks."""
     seg = np.asarray(seg, dtype=np.int64).reshape(-1)
     if seg.size and not (seg.min() >= 0 and seg.max() < num):
         raise ValueError(f"segment ids outside [0, {num})")
     ptr = np.zeros(num + 1, dtype=np.int32)
     ptr[1:] = np.cumsum(np.bincount(seg, minlength=num))
     blocks = np.argsort(seg, kind="stable").astype(np.int32)
-    table = torch.as_tensor(np.concatenate([ptr, blocks]), device=device)
+    return np.concatenate([ptr, blocks])
+
+
+def segment_table(seg: tuple, num: int, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ptr (num + 1,), blocks (E,)) int32 on `device`, two views of one
+    upload: segment s holds the blocks e with seg[e] == s, ascending, as
+    blocks[ptr[s]:ptr[s + 1]]. Raises on a segment id outside [0, num)."""
+    table = torch.as_tensor(_segment_array(seg, num), device=device)
     return table[:num + 1], table[num + 1:]
+
+
+def _check_index_range(idx, w: int) -> None:
+    """Raise unless every entry of `idx` (a numpy array or a tensor) lies in
+    [0, w). On a device tensor this reads the device back."""
+    if math.prod(idx.shape) and not (int(idx.min()) >= 0 and int(idx.max()) < w):
+        raise ValueError(f"idx has entries outside [0, {w})")
+
+
+@dataclass(eq=False)
+class HostDesign:
+    """A design drawn on the host: `cls` (`SparcDesign` or `DftDesign`),
+    its tensor leaves by field name (pinned where they are bound for a
+    card) and its static fields."""
+
+    cls: type
+    leaves: dict
+    static: dict
+
+    @classmethod
+    def of(cls, design_cls: type, arrays: dict, static: dict,
+           pin: bool) -> "HostDesign":
+        """The host design of numpy `arrays`, copied into pinned memory when
+        `pin` (the card's side of a copy without a host sync)."""
+        leaves = {k: torch.from_numpy(np.ascontiguousarray(a))
+                  for k, a in arrays.items()}
+        if pin:
+            leaves = {k: t.pin_memory() for k, t in leaves.items()}
+        return cls(design_cls, leaves, static)
+
+    def upload(self, device) -> "SparcDesign | DftDesign":
+        """The design on `device`. Each leaf is copied with `non_blocking` on
+        the current stream, the stream its products run on after it, so
+        from pinned leaves no copy waits for the device; what the design
+        computes from them (`from_leaves`) is queued on the same stream. On
+        the CPU the design holds the leaves themselves."""
+        device = torch.device(device)
+        return self.cls.from_leaves({k: t.to(device, non_blocking=True)
+                                     for k, t in self.leaves.items()}, self.static)
 
 
 def _next_pow2_at_least(x: int) -> int:
     return 1 << (x - 1).bit_length()
 
 
-def generate_block_randomness(W: np.ndarray, Mr: int, Mc: int, w: int,
-                              seed, offset: int = 1
-                              ) -> Tuple[np.ndarray, np.ndarray,
-                                         np.ndarray, np.ndarray]:
+def _sign_words(bitgen, count: int) -> Tuple[int, np.ndarray]:
+    """Take from `bitgen` (PCG64) what `Generator.integers(0, 2, count)`
+    takes, and return it as (held, words). That call makes `count` 32-bit
+    draws (`next_uint32`: the half of a 64-bit output that the state holds
+    from an earlier 32-bit draw, if any, then the low and the high half of
+    each next output; a high half left over stays held) and keeps each
+    one's top bit (Lemire's bound with two outcomes rejects nothing).
+    held: the held half it starts from, or -1; words: the (ceil((count -
+    [held]) / 2),) uint64 outputs. The state is left as that call leaves
+    it, so the stream goes on unchanged."""
+    state = bitgen.state
+    held = state["uinteger"] if state["has_uint32"] else -1
+    words = bitgen.random_raw((count - (held >= 0) + 1) // 2)
+    left = 2 * len(words) - (count - (held >= 0))
+    if held >= 0 or left:
+        state = bitgen.state
+        state["has_uint32"] = left
+        state["uinteger"] = int(words[-1] >> np.uint64(32)) if left else 0
+        bitgen.state = state
+    return held, words
+
+
+def signs_from_words(words: torch.Tensor, held: torch.Tensor,
+                     count: int) -> torch.Tensor:
+    """The (E, count) float32 +-1 signs of `block_draws`' words ((E,
+    ceil(count / 2)) int64, the uint64 outputs' bits, a shorter row padded)
+    and held halves ((E,) int64): row e's 32-bit draws are its held half,
+    if any, then the low and the high half of each word; a draw's top bit
+    b gives the sign 2b - 1. Plain torch ops on the words' device, which
+    the card runs without a host sync."""
+    # a little-endian int32 view holds each word's low, then high half; a
+    # half's top bit is the view's sign
+    top = torch.cat([(held >= 1 << 31)[:, None], words.view(torch.int32) < 0], dim=1)
+    top = torch.where((held >= 0)[:, None], top[:, :count], top[:, 1:count + 1])
+    return torch.where(top, 1.0, -1.0)
+
+
+def block_draws(W: np.ndarray, Mr: int, Mc: int, w: int, seed,
+                offset: int = 1) -> Tuple[np.ndarray, ...]:
     """Per-nonzero-block randomness for the SRHT blocks, visited row-major
     with one seeded stream: for each block, first the sorted index set
     `rng.choice(base, small, replace=False)`, then the signs
     `rng.integers(0, 2, large)`. Any other order changes the design.
 
-    Returns (rows, cols, idx, signs):
-      rows, cols : (E,) block coordinates of the E nonzero blocks
-      idx        : (E, min(Mr, Mc)) sorted H_w indices for the small side
-      signs      : (E, max(Mr, Mc)) +-1 diagonal for the large (window) side
+    Returns (rows, cols, idx, words, held):
+      rows, cols : (E,) int32 block coordinates of the E nonzero blocks
+      idx        : (E, min(Mr, Mc)) int32 sorted H_w indices for the small
+                   side
+      words, held: the signs of the large (window) side as the stream's
+                   words, (E, ceil(large / 2)) uint64 (a row shorter by one
+                   padded with 0), and (E,) int64 held halves
+                   (`_sign_words`, `signs_from_words`)
+    Per block the stream is read by two calls and nothing else: the sorts
+    run once over all blocks, and the words become signs where the design
+    goes (`signs_from_words`; on the card for an upload). So a thread that
+    draws holds the interpreter's lock for little of its time.
     """
     rng = np.random.default_rng(seed)
-    Lr, Lc = W.shape
     small, large = min(Mr, Mc), max(Mr, Mc)
     if offset == 0:
         # full window [0, w): every index is a candidate
@@ -177,16 +277,32 @@ def generate_block_randomness(W: np.ndarray, Mr: int, Mc: int, w: int,
             Q *= 2
         Q = min(Q, w)
         base = np.arange(1, Q, dtype=np.int32)
-    rows, cols, idxs, sgns = [], [], [], []
-    for r in range(Lr):
-        for c in range(Lc):
-            if W[r, c] != 0:
-                rows.append(r)
-                cols.append(c)
-                idxs.append(np.sort(rng.choice(base, small, replace=False)))
-                sgns.append(rng.integers(0, 2, large).astype(np.float32) * 2 - 1)
-    return (np.array(rows, dtype=np.int32), np.array(cols, dtype=np.int32),
-            np.stack(idxs), np.stack(sgns))
+    rows, cols = (a.astype(np.int32) for a in np.nonzero(W))   # row-major
+    draws = [(rng.choice(base, small, replace=False),
+              _sign_words(rng.bit_generator, large)) for _ in range(len(rows))]
+    idx = np.sort(np.stack([i for i, _ in draws]), axis=1)
+    held = np.array([h for _, (h, _) in draws], dtype=np.int64)
+    n = (large + 1) // 2
+    if all(len(ws) == n for _, (_, ws) in draws):
+        words = np.stack([ws for _, (_, ws) in draws])
+    else:                                   # odd `large`: some rows one short
+        words = np.zeros((len(rows), n), dtype=np.uint64)
+        for row, (_, (_, ws)) in zip(words, draws):
+            row[:len(ws)] = ws
+    return rows, cols, idx, words, held
+
+
+def generate_block_randomness(W: np.ndarray, Mr: int, Mc: int, w: int,
+                              seed, offset: int = 1
+                              ) -> Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray, np.ndarray]:
+    """`block_draws` with the signs made on the host: (rows, cols, idx,
+    signs), signs the (E, max(Mr, Mc)) float32 +-1 diagonal of the large
+    (window) side."""
+    rows, cols, idx, words, held = block_draws(W, Mr, Mc, w, seed, offset)
+    signs = signs_from_words(torch.from_numpy(words.view(np.int64)),
+                             torch.from_numpy(held), max(Mr, Mc))
+    return rows, cols, idx, signs.numpy()
 
 
 def srht_apply(vals: torch.Tensor, idx: torch.Tensor, signs: torch.Tensor,
@@ -267,6 +383,12 @@ class SparcDesign:
     cannot use it: a tall design, or columns that are the identity (one
     block a column block, in order: a one-block design uploads nothing
     more).
+
+    `_index` ((2, E) int64, rows then cols) and `_segments` (the column
+    segment table's one array) come with leaves uploaded from a
+    `HostDesign`, whose index set was checked on the host. Made from
+    device tensors without them, the design checks its index set on the
+    device (a host sync) and uploads both itself.
     """
 
     idx: torch.Tensor
@@ -282,6 +404,8 @@ class SparcDesign:
     n: int
     LM: int
     offset: int = 1
+    _index: torch.Tensor | None = field(default=None, repr=False)
+    _segments: torch.Tensor | None = field(default=None, repr=False)
     _idx32: torch.Tensor = field(init=False, repr=False)
     _rows_t: torch.Tensor = field(init=False, repr=False)
     _cols_t: torch.Tensor = field(init=False, repr=False)
@@ -289,17 +413,28 @@ class SparcDesign:
     _col_blocks: torch.Tensor | None = field(init=False, repr=False)
 
     def __post_init__(self):
-        dev = self.signs.device
-        if self.idx.numel() and not (int(self.idx.min()) >= 0
-                                     and int(self.idx.max()) < self.w):
-            raise ValueError(f"idx has entries outside [0, {self.w})")
-        # the kernels' copy of the index set, checked once here
+        if self._index is None:
+            _check_index_range(self.idx, self.w)
+            dev = self.signs.device
+            index, segments = self._index_arrays(self.rows, self.cols, self.Lc,
+                                                 self.tall)
+            self._index = torch.as_tensor(index, device=dev)
+            self._segments = (None if segments is None
+                              else torch.as_tensor(segments, device=dev))
+        # the kernels' copy of the index set, checked once
         self._idx32 = self.idx.to(torch.int32)
-        self._rows_t = torch.tensor(self.rows, dtype=torch.int64, device=dev)
-        self._cols_t = torch.tensor(self.cols, dtype=torch.int64, device=dev)
+        self._rows_t, self._cols_t = self._index
         self._col_ptr, self._col_blocks = (
-            (None, None) if self.tall or self.cols == tuple(range(self.Lc))
-            else segment_table(self.cols, self.Lc, dev))
+            (None, None) if self._segments is None
+            else (self._segments[:self.Lc + 1], self._segments[self.Lc + 1:]))
+
+    @staticmethod
+    def _index_arrays(rows: tuple, cols: tuple, Lc: int, tall: bool):
+        """(rows and cols as one (2, E) int64 array, the column segment
+        table's array or None where the block-indexed route cannot use it)."""
+        index = np.array([rows, cols], dtype=np.int64).reshape(2, len(rows))
+        identity = tall or cols == tuple(range(Lc))
+        return index, None if identity else _segment_array(cols, Lc)
 
     @property
     def tall(self) -> bool:
@@ -313,10 +448,11 @@ class SparcDesign:
         """This design with the tensor leaves idx, signs (and scale) replaced,
         carrying every static field (w, offset, the block sides, and so
         `tall`) unless `static` names new values: a shard of the column
-        blocks passes its rows, its local cols, Lc and LM."""
+        blocks passes its rows, its local cols, Lc and LM. The new leaves
+        are checked on their device."""
         return dataclasses.replace(self, idx=idx, signs=signs,
                                    scale=self.scale if scale is None else scale,
-                                   **static)
+                                   _index=None, _segments=None, **static)
 
     @property
     def device(self) -> torch.device:
@@ -324,14 +460,13 @@ class SparcDesign:
 
     # -- construction -------------------------------------------------------
     @classmethod
-    def build(cls, W: np.ndarray, L: int, M: int, n: int, seed,
-              device=None) -> "SparcDesign":
-        """The operator for base matrix W (2-D (Lr, Lc)): Mr = n/Lr rows and
-        Mc = L*M/Lc columns per block; transform width w = the window side
-        when it is a power of two (offset 0), else the next power of two
-        with room to skip the all-ones row/column 0 (offset 1). It lies on
-        the card unless `device` says otherwise."""
-        device = resolve_device(device)
+    def draw(cls, W: np.ndarray, L: int, M: int, n: int, seed,
+             pin: bool = False) -> HostDesign:
+        """The operator for base matrix W (2-D (Lr, Lc)), drawn on the host:
+        Mr = n/Lr rows and Mc = L*M/Lc columns per block; transform width w
+        = the window side when it is a power of two (offset 0), else the
+        next power of two with room to skip the all-ones row/column 0
+        (offset 1). The index set is checked here; `pin` pins the leaves."""
         W = np.atleast_2d(np.asarray(W, dtype=np.float64))
         Lr, Lc = W.shape
         assert n % Lr == 0, "Lr must divide n"
@@ -342,21 +477,50 @@ class SparcDesign:
             w, offset = large, 0
         else:
             w, offset = _next_pow2_at_least(large + 1), 1
-        rows, cols, idx, sgns = generate_block_randomness(W, Mr, Mc, w, seed,
-                                                          offset)
-        scale = np.sqrt(W[rows, cols] / L).astype(np.float32)
-        return cls(torch.as_tensor(idx, dtype=torch.int64, device=device),
-                   torch.as_tensor(sgns, device=device),
-                   torch.as_tensor(scale, device=device),
-                   tuple(int(r) for r in rows), tuple(int(c) for c in cols),
-                   Lr, Lc, Mr, Mc, w, n, L * M, offset)
+        rows, cols, idx, words, held = block_draws(W, Mr, Mc, w, seed, offset)
+        _check_index_range(idx, w)
+        rows_t, cols_t = tuple(int(r) for r in rows), tuple(int(c) for c in cols)
+        index, segments = cls._index_arrays(rows_t, cols_t, Lc, Mr > Mc)
+        arrays = {"idx": idx.astype(np.int64), "words": words.view(np.int64),
+                  "held": held,
+                  "scale": np.sqrt(W[rows, cols] / L).astype(np.float32),
+                  "_index": index}
+        if segments is not None:
+            arrays["_segments"] = segments
+        return HostDesign.of(cls, arrays, {
+            "rows": rows_t, "cols": cols_t, "Lr": Lr, "Lc": Lc, "Mr": Mr,
+            "Mc": Mc, "w": w, "n": n, "LM": L * M, "offset": offset}, pin)
+
+    @classmethod
+    def from_leaves(cls, leaves: dict, static: dict) -> "SparcDesign":
+        """The design of `draw`'s leaves, once on their device: the signs
+        made there from the stream's words (`signs_from_words`)."""
+        leaves = dict(leaves)
+        signs = signs_from_words(leaves.pop("words"), leaves.pop("held"),
+                                 max(static["Mr"], static["Mc"]))
+        return cls(signs=signs, **leaves, **static)
+
+    @classmethod
+    def build(cls, W: np.ndarray, L: int, M: int, n: int, seed,
+              device=None) -> "SparcDesign":
+        """`draw`'s operator uploaded to `device`: the card unless `device`
+        says otherwise."""
+        device = resolve_device(device)
+        return cls.draw(W, L, M, n, seed, device.type == "cuda").upload(device)
+
+    @classmethod
+    def draw_for_params(cls, params: SparcParams, awgn_var: float, seed,
+                        pin: bool = False) -> HostDesign:
+        W = create_base_matrix(params, awgn_var)
+        return cls.draw(W, params.L, params.M, params.codeword_length(), seed,
+                        pin)
 
     @classmethod
     def for_params(cls, params: SparcParams, awgn_var: float, seed,
                    device=None) -> "SparcDesign":
-        W = create_base_matrix(params, awgn_var)
-        return cls.build(W, params.L, params.M, params.codeword_length(), seed,
-                         device)
+        device = resolve_device(device)
+        return cls.draw_for_params(params, awgn_var, seed,
+                                   device.type == "cuda").upload(device)
 
     # -- products -----------------------------------------------------------
     def _fwd_blocks(self, vals: torch.Tensor, fwht_kernel: bool = True,
@@ -456,26 +620,40 @@ class DftDesign:
         return self.rows.device
 
     @classmethod
-    def for_params(cls, params: SparcParams, awgn_var: float, seed,
-                   device=None) -> "DftDesign":
-        """The design of `params` from `np.random.default_rng(seed)`: one
-        permutation of the allowed indices for the rows, then one for the
-        columns (any other order is another design). On the card unless
-        `device` says otherwise."""
+    def draw_for_params(cls, params: SparcParams, awgn_var: float, seed,
+                        pin: bool = False) -> HostDesign:
+        """The design of `params` from `np.random.default_rng(seed)`, drawn
+        on the host: one permutation of the allowed indices for the rows,
+        then one for the columns (any other order is another design).
+        `pin` pins the leaves."""
         if not params.is_complex:
             raise ValueError("DftDesign is the complex-code engine")
         if params.power_allocated or params.spatially_coupled:
             raise ValueError("DftDesign takes the plain (scalar-W) families only")
-        device = resolve_device(device)
         n, LM = params.codeword_length(), params.L * params.M
         w = 1 << int(np.ceil(np.log2(max(n + 2, LM + 2))))
         rng = np.random.default_rng(seed)
         allowed = np.delete(np.arange(w, dtype=np.int32), [0, w // 2])
         rows = np.sort(rng.permutation(allowed)[:n])
         cols = np.sort(rng.permutation(allowed)[:LM])
-        return cls(torch.as_tensor(rows, dtype=torch.int64, device=device),
-                   torch.as_tensor(cols, dtype=torch.int64, device=device),
-                   w, n, LM, float(np.sqrt(params.P / params.L)))
+        return HostDesign.of(cls, {"rows": rows.astype(np.int64),
+                                   "cols": cols.astype(np.int64)},
+                             {"w": w, "n": n, "LM": LM,
+                              "scale": float(np.sqrt(params.P / params.L))}, pin)
+
+    @classmethod
+    def from_leaves(cls, leaves: dict, static: dict) -> "DftDesign":
+        """The design of `draw_for_params`' leaves, once on their device."""
+        return cls(**leaves, **static)
+
+    @classmethod
+    def for_params(cls, params: SparcParams, awgn_var: float, seed,
+                   device=None) -> "DftDesign":
+        """`draw_for_params`' design on `device`: the card unless `device`
+        says otherwise."""
+        device = resolve_device(device)
+        return cls.draw_for_params(params, awgn_var, seed,
+                                   device.type == "cuda").upload(device)
 
     # fwht_kernel and fwht_mode are the SRHT products' arguments; the DFT's
     # products are torch.fft calls whatever they say

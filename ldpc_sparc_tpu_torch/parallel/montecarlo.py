@@ -11,7 +11,10 @@ Counterpart of `ldpc_sparc_tpu/parallel/montecarlo.py`:
   from `rng.derive(seed, t)`, and uses design (seed, t % n_designs) with
   n_designs = min(8, n_trials). The counters are then a function of
   (seed, trial index) alone, however the trials are grouped: the trials
-  of one design decode together, as one `decode_batch` call.
+  of one design decode together, as one `decode_batch` call. A host
+  thread draws the designs ahead of their decodes (`_designs_ahead`), and
+  each goes to the device without a host sync and is dropped once its
+  counts are queued.
 * `concat_mc_counts`: the concatenated LDPC-SPARC point under the same
   contract (trial t: user bits then noise from `rng.derive(seed, t)`,
   design (seed, t % n_designs)), all trials decoded as one
@@ -48,8 +51,11 @@ JAX package does. The mesh's device is the default device of each rank.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import inspect
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -60,7 +66,7 @@ from ..models.concat import ConcatCodec, amp_steps
 from ..models.ldpc import LdpcCode, get_code
 from ..models.sparc import awgn_channel, decode_batch
 from ..ops.bp import bp_decode
-from ..ops.transforms import DesignStack, stack_designs
+from ..ops.transforms import DesignStack, design_class, stack_designs  # noqa: F401
 from ..utils import bits as bitops
 from ..utils import rng as rngmod
 from ..utils import tracing
@@ -88,6 +94,44 @@ def _mesh_device(device, mesh):
 # SPARC Monte Carlo
 # --------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _designs_ahead(params: SparcParams, awgn_var: float, seed, n_designs: int,
+                   engine: str, device: torch.device):
+    """`take`, for `take(d)` with d = 0, 1, ... n_designs - 1 in turn: design
+    (seed, d) by `engine` on `device`.
+
+    One host thread draws the designs in order (`draw_for_params`, the
+    leaves pinned for a card), at most two ahead of the one taken, so that
+    design d + 1 is drawn while the card runs design d. `take(d)` waits for
+    design d and uploads it without a host sync, inside the span
+    `mc.designs`, and counts `mc.designs_built` and `mc.designs_waited` (a
+    design not yet drawn when asked for; design 0 always is). A draw's
+    error is raised by its `take`. The thread has ended when the block
+    exits, however it exits.
+    """
+    draw = functools.partial(design_class(engine).draw_for_params, params,
+                             awgn_var, pin=device.type == "cuda")
+    pool = ThreadPoolExecutor(max_workers=1)
+    ahead = {d: pool.submit(draw, (seed, d)) for d in range(min(2, n_designs))}
+
+    def take(d: int):
+        with tracing.span("mc.designs"):
+            drawn = ahead.pop(d)
+            waited = d == 0 or not drawn.done()
+            design = drawn.result().upload(device)
+            del drawn                      # its host leaves, before the next draw
+            if d + 2 < n_designs:
+                ahead[d + 2] = pool.submit(draw, (seed, d + 2))
+        tracing.count("mc.designs_built")
+        tracing.count("mc.designs_waited", int(waited))
+        return design
+
+    try:
+        yield take
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
                     seed, n_trials: int, n_designs: int | None = None,
                     engine: str = "srht", fwht_mode: str = "ms",
@@ -97,7 +141,9 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
 
     Trial t: bits then noise from `root_generator(derive(seed, t))`, design
     (seed, t % n_designs) by `engine` ('srht' or 'dft'). The trials of one
-    design decode together, as one `decode_batch` call. fused_denoiser: see
+    design decode together, as one `decode_batch` call, in design order;
+    design d + 1 is drawn on a host thread while design d decodes, and at
+    most two designs are held on the device. fused_denoiser: see
     `models.sparc.amp_decode`. mesh: see the module docstring.
 
     Returns the counters bit_errs, bits, sec_errs, sections, frame_errs,
@@ -108,36 +154,38 @@ def sparc_mc_counts(params: SparcParams, decode: DecodeParams, awgn_var: float,
     if n_designs is None:
         n_designs = min(8, n_trials)
     lo, hi, group = _share(n_trials, mesh)
-    with tracing.span("mc.designs"):
-        designs = stack_designs(params, awgn_var, seed, n_designs, engine, device)
     M, K, L = params.M, params.K, params.L
     totals = torch.zeros(6, dtype=torch.int64, device=device)
-    for d, design in enumerate(designs):
-        with tracing.span("mc.bits"):
-            gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
-                    for t in range(d, n_trials, n_designs) if lo <= t < hi]
-            if not gens:
-                continue
-            bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
-            beta0 = bitops.bits_to_msg_vector(bits, M, K)
-        with tracing.span("mc.encode"):
-            x = design.ab(beta0, fwht_mode=fwht_mode)
-        with tracing.span("mc.noise"):
-            y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
-        with tracing.span("mc.decode"):
-            beta, t_final = decode_batch(y, design, params, decode, awgn_var,
-                                         fused_denoiser=fused_denoiser,
-                                         fwht_mode=fwht_mode)
-        with tracing.span("mc.count"):
-            bit_errs = (bitops.msg_vector_to_bits(beta, M, K) != bits).sum(-1)
-            if params.modulated:
-                _, (loc_e, val_e, sec_e) = location_value_errors(beta0, beta, L)
-                loc_errs, val_errs = loc_e.sum(), val_e.sum()
-            else:
-                sec_e = (beta != beta0).reshape(-1, L, M).any(-1)
-                loc_errs = val_errs = torch.zeros((), dtype=torch.int64, device=device)
-            totals += torch.stack([bit_errs.sum(), sec_e.sum(), (bit_errs > 0).sum(),
-                                   t_final.sum(), loc_errs, val_errs])
+    with _designs_ahead(params, awgn_var, seed, n_designs, engine,
+                        device) as take:
+        for d in range(n_designs):
+            design = take(d)
+            with tracing.span("mc.bits"):
+                gens = [rngmod.root_generator(rngmod.derive(seed, t), device)
+                        for t in range(d, n_trials, n_designs) if lo <= t < hi]
+                if not gens:
+                    continue
+                bits = torch.stack([bitops.random_bits(g, params.bit_len) for g in gens])
+                beta0 = bitops.bits_to_msg_vector(bits, M, K)
+            with tracing.span("mc.encode"):
+                x = design.ab(beta0, fwht_mode=fwht_mode)
+            with tracing.span("mc.noise"):
+                y = torch.stack([awgn_channel(xi, awgn_var, g) for xi, g in zip(x, gens)])
+            with tracing.span("mc.decode"):
+                beta, t_final = decode_batch(y, design, params, decode, awgn_var,
+                                             fused_denoiser=fused_denoiser,
+                                             fwht_mode=fwht_mode)
+            with tracing.span("mc.count"):
+                bit_errs = (bitops.msg_vector_to_bits(beta, M, K) != bits).sum(-1)
+                if params.modulated:
+                    _, (loc_e, val_e, sec_e) = location_value_errors(beta0, beta, L)
+                    loc_errs, val_errs = loc_e.sum(), val_e.sum()
+                else:
+                    sec_e = (beta != beta0).reshape(-1, L, M).any(-1)
+                    loc_errs = val_errs = torch.zeros((), dtype=torch.int64, device=device)
+                totals += torch.stack([bit_errs.sum(), sec_e.sum(), (bit_errs > 0).sum(),
+                                       t_final.sum(), loc_errs, val_errs])
+            del design      # its device memory goes to the next upload
     with tracing.span("mc.count"):
         if group is None:
             be, se, fe, it, le, ve = totals.tolist()

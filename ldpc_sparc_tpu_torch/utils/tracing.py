@@ -11,7 +11,8 @@
 
 Spans (`parallel/montecarlo.py::sparc_mc_counts`, one point):
 
-    mc.designs   the seeded designs' build and upload         1
+    mc.designs   each wait for a design drawn on the host     n_designs
+                 thread, and its upload (main thread)
     mc.bits      each design's trial generators and bits      n_designs
     mc.encode    each design's encode, A beta0                n_designs
     mc.noise     each design's AWGN draws                     n_designs
@@ -31,6 +32,10 @@ the counts and the one read. Inside its decode (`models/concat.py`):
 
 Counters:
 
+    mc.designs_built    designs the host thread drew and `sparc_mc_counts`
+                        took, n_designs a point
+    mc.designs_waited   of those, the ones not yet drawn when the point
+                        asked for them (the first design of a point always)
     amp.row_iters       rows each AMP iteration computes (`amp_decode`)
     amp.live_row_iters  of those, the rows still running: the sum of the
                         decodes' t_final (`sparc_mc_counts`)
