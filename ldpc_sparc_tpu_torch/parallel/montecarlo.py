@@ -377,17 +377,22 @@ def _batch_counts(code: LdpcCode, snr_db: float, gen: torch.Generator,
     codewords to decode; the whole batch is drawn all the same."""
     dev = gen.device
     sigma2 = 1.0 / 10 ** (snr_db / 10.0)
-    u = torch.randint(0, 2, (batch, code.K), generator=gen, device=dev,
-                      dtype=torch.int32)
-    noise = torch.randn(batch, code.N, generator=gen, device=dev)[part]
-    x = code.encode(u[part])
-    y = (1.0 - 2.0 * x.to(torch.float32)) + math.sqrt(sigma2) * noise  # BPSK
-    llr = (2.0 / sigma2) * y                      # ch2llr (ldpc_awgn.py:51-53)
+    with tracing.span("mc.bits"):
+        u = torch.randint(0, 2, (batch, code.K), generator=gen, device=dev,
+                          dtype=torch.int32)
+    with tracing.span("mc.noise"):
+        noise = torch.randn(batch, code.N, generator=gen, device=dev)[part]
+    with tracing.span("mc.encode"):
+        x = code.encode(u[part])
+        y = (1.0 - 2.0 * x.to(torch.float32)) + math.sqrt(sigma2) * noise  # BPSK
+        llr = (2.0 / sigma2) * y                  # ch2llr (ldpc_awgn.py:51-53)
     method = "minsum" if dectype == "minsum" else "sumprod"
-    res = bp_decode(llr, code.graph, max_iters, method, 0.7, bp_kernel=bp_kernel)
-    biterrs = (x != (res.app < 0).to(torch.int32)).sum(1)
-    return torch.stack([biterrs.sum(), (biterrs > 0).sum(),
-                        res.iterations.sum(dtype=torch.int64)])
+    with tracing.span("mc.decode"):
+        res = bp_decode(llr, code.graph, max_iters, method, 0.7, bp_kernel=bp_kernel)
+    with tracing.span("mc.count"):
+        biterrs = (x != (res.app < 0).to(torch.int32)).sum(1)
+        return torch.stack([biterrs.sum(), (biterrs > 0).sum(),
+                            res.iterations.sum(dtype=torch.int64)])
 
 
 def _batch_generator(seed, ctr: int, device) -> torch.Generator:
@@ -407,7 +412,8 @@ def _ldpc_block_counts(code: LdpcCode, snr_db: float, seed, ctr: int,
                         batch, max_iters, dectype, bp_kernel, slice(lo, hi))
     if group is not None:
         all_reduce(out, group)
-    be, bl, it = out.tolist()
+    with tracing.span("campaign.read"):
+        be, bl, it = out.tolist()
     return be, bl, it
 
 
@@ -467,6 +473,7 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
             return None                      # computed in read()
         counts = _batch_counts(code, snr_now, _batch_generator(seed, ctr0, device),
                                batch, max_iters, dectype, bp_kernel)
+        tracing.count("campaign.batches")
         if counts.device.type != "cuda":
             return counts, None
         host = torch.empty(3, dtype=torch.int64, pin_memory=True)
@@ -477,12 +484,14 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
 
     def read(fut, snr_now, ctr0):
         if not pipelined:
+            tracing.count("campaign.batches")
             return _ldpc_block_counts(code, snr_now, seed, ctr0, batch,
                                       max_iters, dectype, device, bp_kernel, mesh)
         host, done = fut
-        if done is not None:
-            done.synchronize()
-        be, bl, it = host.tolist()
+        with tracing.span("campaign.read"):
+            if done is not None:
+                done.synchronize()
+            be, bl, it = host.tolist()
         return be, bl, it
 
     for point in range(int(start_point), n_measurements):
@@ -500,11 +509,15 @@ def ldpc_waterfall_campaign(ldpc_params: LdpcParams, seed: int = 0,
             nblk += bl
             nit += it
             nblocks += batch
+            tracing.count("campaign.codeword_iters", it)
         # the speculative batch belongs to this point's SNR; the next point
         # measures elsewhere — discard it and rewind the counter (inflight is
         # None only if the stop condition held at once, e.g. min_errors=0)
         if inflight is not None:
             ctr = inflight[0]
+            if pipelined:
+                tracing.count("campaign.batches_discarded")
+        tracing.count("campaign.points")
         rec = (ldpc_params.standard, ldpc_params.rate, ldpc_params.z,
                ldpc_params.ptype, float(snr), nblocks, nblk,
                nblocks * code.K, nbit, nit)

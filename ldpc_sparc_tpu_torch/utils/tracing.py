@@ -30,6 +30,19 @@ the counts and the one read. Inside its decode (`models/concat.py`):
                      BP, sections, the Onsager derivative     t_max - 1
     concat.bp_final  the last step's MMSE, bits and hard BP   1
 
+The LDPC waterfall campaign (`parallel/montecarlo.py::
+ldpc_waterfall_campaign`, through `_batch_counts`) takes the `mc.*` spans
+once a batch, the speculative batch included:
+
+    mc.bits         the batch's information bits
+    mc.noise        its AWGN draws
+    mc.encode       the LDPC encode, BPSK and the channel LLRs
+    mc.decode       the batched BP decode (K4 on a card)
+    mc.count        the bit and block errors and the iteration sum
+    campaign.read   the host's wait for a batch's counts and their read
+                    (the event and the pinned copy when pipelined; the
+                    copy of `_ldpc_block_counts` when serial)
+
 Counters:
 
     mc.designs_built    designs the host thread drew and `sparc_mc_counts`
@@ -45,6 +58,13 @@ Counters:
     concat.bp_codeword_iters  BP iterations of every codeword of the
                         point's decodes, from the `bp_iters` that
                         `concat_mc_counts` reads back (this rank's rows)
+    campaign.points     points the campaign measured
+    campaign.batches    batches dispatched, the pipelined loop's
+                        speculative one of each point included
+    campaign.batches_discarded  of those, the speculative batches a
+                        pipelined point discarded: one a point
+    campaign.codeword_iters  BP iterations of every codeword of the counted
+                        batches, from the counts the loop reads anyway
     k1.launches .. k4.launches   launches of the hand-written kernels
                         (`ops/wht_cuda.py` K1 and K2, `ops/denoiser_cuda.py`
                         K3, `ops/bp_cuda.py` K4)
